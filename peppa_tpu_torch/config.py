@@ -1,0 +1,233 @@
+"""Typed configuration, format-compatible with the JAX package's YAML files.
+
+The port keeps its own copy of the schema (peppa_tpu/config.py) so that it
+never imports the JAX package: the dataclasses, `from_dict`, `to_dict` and
+YAML load/dump are the same, key for key, so every `hparams_*.yaml` loads
+into both packages alike.  `yaml` is imported only inside `load`/`dump`, so
+building a `Config` in code needs no PyYAML.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+
+@dataclass
+class AudioConfig:
+    """Audio (wav2vec2) encoder config."""
+    path: str = "data/in/wav2vec/wav2vec_small.pt"
+    pretrained: bool = True
+    freeze_feature_extractor: bool = False
+    freeze_encoder_layers: Optional[int] = None
+    pooling: str = "attention"  # average | attention | last
+    project: bool = True
+    full: bool = True  # True: transformer + 28-d head; False: conv features only
+    num_layers: Optional[int] = None  # transformer depth override (None: 12)
+    dropout: Optional[float] = None  # override every dropout/layer-drop rate
+
+
+@dataclass
+class VideoConfig:
+    """Video encoder config."""
+    pretrained: bool = True
+    project: bool = True
+    version: str = "r2plus1d_18"  # r2plus1d_18 | r3d_18 | mc3_18
+    pooling: str = "attention"  # average | attention
+    static: bool = False  # True: per-frame ResNet-18 ablation
+    midplanes_multiple: Optional[int] = None  # round (2+1)D mid widths
+
+
+@dataclass
+class SplitConfig:
+    """Per-split data options."""
+    batch_size: int = 8
+    duration: Optional[float] = 2.3
+    force_cache: bool = False
+    jitter: bool = False
+    jitter_sd: Optional[float] = None
+    shuffle: bool = False
+
+
+@dataclass
+class DataConfig:
+    """Data pipeline config."""
+    num_workers: int = 12
+    extract: bool = False
+    prepare: bool = False
+    iterable: bool = False
+    cache: bool = True
+    target_size: Tuple[int, int] = (180, 100)
+    audio_sample_rate: int = 44100
+    data_dir: str = "data"
+    train: SplitConfig = field(default_factory=lambda: SplitConfig(
+        jitter=True, jitter_sd=0.5, shuffle=True))
+    val: SplitConfig = field(default_factory=SplitConfig)
+    test: SplitConfig = field(default_factory=SplitConfig)
+
+
+@dataclass
+class OptimizerConfig:
+    """BertAdam config."""
+    lr: float = 1e-4
+    warmup: float = 0.1
+    schedule: str = "warmup_linear"
+    t_total: int = 15000
+    b1: float = 0.9
+    b2: float = 0.999
+    e: float = 1e-6
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
+
+
+@dataclass
+class TrainerConfig:
+    """Training-loop knobs."""
+    accumulate_grad_batches: int = 8
+    precision: str = "bf16"
+    max_steps: Optional[int] = None
+    max_epochs: Optional[int] = None
+    max_time: Optional[str] = "02:00:00:00"
+    val_check_interval: Optional[int] = None
+    num_sanity_val_steps: int = 15
+    limit_train_batches: Optional[int] = None
+    limit_val_batches: Optional[int] = None
+    log_every_n_steps: int = 10
+    seed: int = 0
+
+
+@dataclass
+class TPUConfig:
+    """Execution knobs of the JAX package, kept so its YAML files round-trip.
+
+    The port reads `bucket_durations` (serving shapes) and `bn_dtype`; the
+    other keys steer the JAX package only.
+    """
+    mesh_shape: Optional[Sequence[int]] = None
+    mesh_axes: Sequence[str] = ("data", "model")
+    donate_state: bool = True
+    remat_video: bool = False
+    remat_audio: bool = False
+    bn_dtype: Optional[str] = None  # BatchNorm output dtype (None: model's)
+    quantize_int8: bool = False
+    bucket_durations: Sequence[float] = (2.3, 3.2, 4.0, 6.0)
+    use_pallas: bool = True
+    global_negative_loss: bool = True
+    native_loader: bool = True
+    pack_audio_int16: bool = False
+    prefetch: int = 2
+    preempt_signals: Sequence[str] = ("SIGTERM", "SIGUSR1")
+    host_rss_recycle_gb: Optional[float] = 48.0
+    collapse_guard: str = "stop"
+    collapse_window: int = 25
+
+
+@dataclass
+class Config:
+    """Top-level config."""
+    margin: float = 0.2
+    data: DataConfig = field(default_factory=DataConfig)
+    video: VideoConfig = field(default_factory=VideoConfig)
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    training: TrainerConfig = field(default_factory=TrainerConfig)
+    tpu: TPUConfig = field(default_factory=TPUConfig)
+    git_commit: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Render as a plain dict in the reference layout (YAML-dumpable)."""
+        d = _asdict(self)
+        trainer = d.pop("training")
+        d["training"] = {"trainer_args": {
+            "accumulate_grad_batches": trainer["accumulate_grad_batches"],
+            "precision": trainer["precision"],
+        }}
+        d["training"].update({k: v for k, v in trainer.items()
+                              if k not in ("accumulate_grad_batches", "precision")})
+        if d.get("git_commit") is None:
+            d.pop("git_commit", None)
+        return d
+
+    def dump(self, path: str) -> None:
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f)
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any]) -> "Config":
+        raw = copy.deepcopy(raw)
+        cfg = cls()
+        if "margin" in raw:
+            cfg.margin = float(raw["margin"])
+        if "git_commit" in raw:
+            cfg.git_commit = raw["git_commit"]
+
+        cfg.audio = _update(AudioConfig(), raw.get("audio", {}))
+
+        video = dict(raw.get("video", {}))
+        static = video.pop("static", False)
+        vc = _update(VideoConfig(), video)
+        vc.static = bool(static)
+        if static and "version" not in video:
+            vc.version = "static"
+        cfg.video = vc
+
+        data = dict(raw.get("data", {}))
+        for split in ("train", "val", "test"):
+            if split in data:
+                setattr(cfg.data, split, _update(
+                    copy.deepcopy(getattr(cfg.data, split)), data.pop(split)))
+        cfg.data = _update(cfg.data, data)
+        if isinstance(cfg.data.target_size, list):
+            cfg.data.target_size = tuple(cfg.data.target_size)
+
+        cfg.optimizer = _update(OptimizerConfig(), raw.get("optimizer", {}))
+
+        training = dict(raw.get("training", {}))
+        trainer_args = dict(training.pop("trainer_args", {}))
+        for legacy in ("gpus", "auto_select_gpus"):  # Lightning-only keys
+            trainer_args.pop(legacy, None)
+        precision = trainer_args.pop("precision", None)
+        tc = _update(TrainerConfig(), {**trainer_args, **training})
+        if precision is not None:
+            tc.precision = ("bf16" if str(precision) in ("16", "bf16", "bfloat16")
+                            else "fp32")
+        cfg.training = tc
+
+        cfg.tpu = _update(TPUConfig(), raw.get("tpu", {}))
+        return cfg
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        import yaml
+
+        with open(path) as f:
+            return cls.from_dict(yaml.safe_load(f))
+
+
+def _update(obj, values: Dict[str, Any]):
+    """Apply dict values onto a dataclass, ignoring unknown keys."""
+    names = {f.name for f in dataclasses.fields(obj)}
+    for k, v in values.items():
+        if k in names:
+            setattr(obj, k, v)
+    return obj
+
+
+def _asdict(obj) -> Dict[str, Any]:
+    def clean(x):
+        if isinstance(x, dict):
+            return {k: clean(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return [clean(v) for v in x]
+        return x
+
+    return clean(dataclasses.asdict(obj))
+
+
+def default_config() -> Config:
+    """The canonical base configuration (`hparams_base.yaml`)."""
+    return Config()

@@ -1,0 +1,123 @@
+"""The dual audio/video encoder.
+
+Mirrors peppa_tpu/models/dual_encoder.py: the wav2vec2 audio branch and the
+R(2+1)D video branch, `encode_audio` / `encode_video` with tap points, and
+the forward on a `ClipBatch`.  The static per-frame video ablation and
+`TripletBatch` dispatch come in later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from peppa_tpu_torch.config import Config
+from peppa_tpu_torch.data.types import ClipBatch
+from peppa_tpu_torch.models.layers import Conv, Dense
+from peppa_tpu_torch.models.normalization import resolve_stats
+from peppa_tpu_torch.models.video3d import R3DEncoder
+from peppa_tpu_torch.models.wav2vec2 import (ConvPositionalEmbedding,
+                                             Wav2Vec2Config, Wav2Vec2Encoder)
+from peppa_tpu_torch.utils.device import resolve_device
+
+
+def dtype_of(precision: str) -> torch.dtype:
+    return (torch.bfloat16 if precision in ("bf16", "16", "bfloat16")
+            else torch.float32)
+
+
+class PeppaPig(nn.Module):
+    """Dual encoder, configured from a `Config`."""
+
+    def __init__(self, config: Config):
+        super().__init__()
+        self.config = config
+        dtype = dtype_of(config.training.precision)
+        audio_kw = {}
+        if config.audio.num_layers is not None:
+            audio_kw["num_layers"] = config.audio.num_layers
+        if config.audio.dropout is not None:
+            d = config.audio.dropout
+            audio_kw.update(dropout=d, attention_dropout=d,
+                            activation_dropout=d, layer_drop=d)
+        self.audio_encoder = Wav2Vec2Encoder(
+            full=config.audio.full, pooling=config.audio.pooling,
+            project=config.audio.project, cfg=Wav2Vec2Config(**audio_kw),
+            dtype=dtype)
+        if config.video.static:
+            raise NotImplementedError(
+                "the static per-frame video encoder comes in a later slice")
+        # kinetics stats if pretrained else peppa
+        norm = "kinetics" if config.video.pretrained else "peppa"
+        mean, std = resolve_stats(norm, config.data.data_dir)
+        bn_dtype = (getattr(torch, config.tpu.bn_dtype)
+                    if config.tpu.bn_dtype else None)
+        self.video_encoder = R3DEncoder(
+            version=config.video.version, pooling=config.video.pooling,
+            project=config.video.project, mean=mean, std=std, dtype=dtype,
+            bn_dtype=bn_dtype,
+            midplanes_multiple=config.video.midplanes_multiple)
+
+    def encode_video(self, video: torch.Tensor,
+                     frame_lengths: Optional[torch.Tensor] = None,
+                     train: bool = False, tap: str = "embedding"
+                     ) -> torch.Tensor:
+        """Embed (B, T, H, W, C) video to the shared 512-d space."""
+        return self.video_encoder(video, frame_lengths, train, tap)
+
+    def encode_audio(self, audio: torch.Tensor,
+                     sample_lengths: Optional[torch.Tensor] = None,
+                     train: bool = False, tap: str = "embedding",
+                     mask_padding: bool = False) -> torch.Tensor:
+        """Embed (B, S) waveforms to the shared 512-d space."""
+        return self.audio_encoder(audio, sample_lengths, not train, tap,
+                                  mask_padding)
+
+    def forward(self, batch: ClipBatch, train: bool = False) -> ClipBatch:
+        """Video pooling is masked by `video_frames`; audio pooling is not
+        (`mask_padding=False`), as in the JAX package."""
+        if not isinstance(batch, ClipBatch):
+            raise TypeError(f"expected a ClipBatch, got {type(batch).__name__}")
+        v = self.encode_video(batch.video, batch.video_frames, train=train)
+        a = self.encode_audio(batch.audio, batch.audio_samples, train=train)
+        return ClipBatch(video=v, audio=a,
+                         video_duration=batch.video_duration,
+                         audio_duration=batch.audio_duration,
+                         video_frames=batch.video_frames,
+                         audio_samples=batch.audio_samples)
+
+
+def _init_parameters(model: nn.Module, gen: torch.Generator) -> None:
+    """Seeded random init with the JAX package's initialisers: LeCun-normal
+    (truncated at 2 sigma) kernels, zero biases, unit norm scales, and
+    N(0, 4/(k*d)) for the positional conv's `v`."""
+    for module in model.modules():
+        if isinstance(module, (Dense, Conv)):
+            w = module.weight
+            fan_in = math.prod(w.shape[1:])
+            # flax's truncated normal: stddev / .87962566103423978
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            with torch.no_grad():
+                torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                            generator=gen)
+                w.mul_(std)
+        elif isinstance(module, ConvPositionalEmbedding):
+            k, _, d = module.pos_conv_v.shape
+            with torch.no_grad():
+                module.pos_conv_v.normal_(0.0, math.sqrt(4.0 / (k * d)),
+                                          generator=gen)
+
+
+def init_model(config: Config, seed: int = 0,
+               device: Optional[Union[str, torch.device]] = None) -> PeppaPig:
+    """Build the model with seeded random weights, in eval mode, on `device`
+    (None: the card; raises without CUDA).  The weights are drawn on the CPU
+    from `torch.Generator().manual_seed(seed)`, so a seed gives the same
+    weights on every device."""
+    dev = resolve_device(device)
+    model = PeppaPig(config)
+    _init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.eval().to(dev)

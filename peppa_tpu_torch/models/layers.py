@@ -1,0 +1,220 @@
+"""Building blocks and pooling modules of the encoders.
+
+Mirrors peppa_tpu/models/layers.py (the poolers) and the parameter
+conventions of peppa_tpu/models/qlayers.py.  Parameters are float32, as the
+JAX package keeps them; `Dense` and `Conv` cast input and weights to their
+compute dtype at call time (bf16 on the bf16 model), `LayerNorm` and
+`GroupNorm` compute and return float32, and `BatchNorm` (eval mode, running
+statistics) computes in float32 and returns its dtype, as flax does.
+
+Weight layouts are PyTorch's: Linear (out, in), Conv (out, in, *kernel).
+`models/convert.py` moves the JAX package's layouts into them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def length_mask(lengths: torch.Tensor, size: int) -> torch.Tensor:
+    """(B,) valid lengths -> (B, size) boolean mask."""
+    pos = torch.arange(size, device=lengths.device)[None, :]
+    return pos < lengths[:, None]
+
+
+class Dense(nn.Module):
+    """y = x W^T + b in `dtype`; `dtype=None` computes in float32 (flax's
+    promotion of bf16 inputs against float32 parameters)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None, bias: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.float32
+        b = self.bias.to(dt) if self.bias is not None else None
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Conv(nn.Module):
+    """Bias-free N-d convolution (N = len(kernel)) on channels-first input."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 kernel: Sequence[int], stride: Sequence[int],
+                 padding: Sequence[int], dtype: torch.dtype):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features, *kernel))
+        self._conv = {1: F.conv1d, 3: F.conv3d}[len(kernel)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x.to(self.dtype), self.weight.to(self.dtype),
+                          None, self.stride, self.padding)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, eps 1e-5, float32 in and out."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight,
+                            self.bias, 1e-5)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm on (B, C, T), eps 1e-5, float32 in and out."""
+
+    def __init__(self, groups: int, features: int):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.groups, self.weight, self.bias,
+                            1e-5)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm on channels-first input, eps 1e-5.
+
+    Computes (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 with
+    float32 running statistics and returns `dtype` (flax's order of
+    operations).  Training mode comes with the training slice.
+    """
+
+    def __init__(self, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
+        y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
+             + self.bias.view(shape))
+        return y.to(self.dtype)
+
+
+class AttentionPool(nn.Module):
+    """Per-feature soft attention over time.
+
+    alpha = softmax_t(W_out tanh(W_h x)); out = sum_t alpha * x, with the
+    softmax over the time axis independently per feature, in float32.
+    """
+
+    def __init__(self, features: int, hidden_size: int = 128):
+        super().__init__()
+        self.hidden = Dense(features, hidden_size)
+        self.out = Dense(hidden_size, features)
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        scores = self.out(torch.tanh(self.hidden(x)))  # (B, T, D) float32
+        if lengths is not None:
+            mask = length_mask(lengths, x.shape[1])[:, :, None]
+            scores = scores.masked_fill(~mask, -math.inf)
+        alpha = torch.softmax(scores.float(), dim=1).to(x.dtype)
+        return torch.sum(alpha * x, dim=1)
+
+
+class AveragePool(nn.Module):
+    """The reference's AdaptiveAvgPool2d((size, 1)) quirk: time is binned
+    adaptively into `size` bins and the features are averaged."""
+
+    def __init__(self, size: int = 512):
+        super().__init__()
+        self.size = size
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        t = x.shape[1]
+        feat_mean = torch.mean(x, dim=2)  # (B, T)
+        idx = torch.arange(self.size, device=x.device)
+        starts = torch.floor(idx * t / self.size).long()
+        ends = torch.ceil((idx + 1) * t / self.size).long()
+        pos = torch.arange(t, device=x.device)
+        sel = (pos[None, :] >= starts[:, None]) & (pos[None, :] < ends[:, None])
+        weights = sel.to(x.dtype) / torch.clamp(
+            sel.sum(dim=1, keepdim=True), min=1).to(x.dtype)
+        return torch.einsum("bt,st->bs", feat_mean, weights)
+
+
+class LastStep(nn.Module):
+    """The last (valid) timestep as the clip embedding."""
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if lengths is None:
+            return x[:, -1, :]
+        idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+class VideoAveragePool(nn.Module):
+    """Global average over (T, H, W) of channels-last (B, T, H, W, C)."""
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if lengths is None:
+            return torch.mean(x, dim=(1, 2, 3))
+        mask = length_mask(lengths, x.shape[1]).to(x.dtype)[:, :, None, None,
+                                                            None]
+        total = torch.sum(x * mask, dim=(1, 2, 3))
+        count = torch.sum(mask, dim=(1, 2, 3)) * x.shape[2] * x.shape[3]
+        return total / torch.clamp(count, min=1.0)
+
+
+class VideoAttentionPool(nn.Module):
+    """Spatial mean, then temporal attention, on (B, T, H, W, C)."""
+
+    def __init__(self, features: int = 512, hidden_size: int = 128):
+        super().__init__()
+        self.attn = AttentionPool(features, hidden_size)
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.attn(torch.mean(x, dim=(2, 3)), lengths)
+
+
+def make_audio_pool(pooling: str, n_features: int) -> nn.Module:
+    """Audio pooler factory."""
+    if pooling == "average":
+        return AveragePool(size=n_features)
+    if pooling == "attention":
+        return AttentionPool(n_features, 128)
+    if pooling == "last":
+        return LastStep()
+    raise ValueError(f"Invalid pooling: {pooling}")
+
+
+def make_video_pool(pooling: str, features: int = 512) -> nn.Module:
+    """Video pooler factory."""
+    if pooling == "attention":
+        return VideoAttentionPool(features, 128)
+    if pooling == "average":
+        return VideoAveragePool()
+    raise ValueError(f"Invalid pooling {pooling}")
+
+
+def conv_padding(kernel: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Symmetric k//2 padding per axis (the JAX package's `_conv`)."""
+    return tuple(k // 2 for k in kernel)
