@@ -1,4 +1,5 @@
-"""Carry the JAX package's variables across into the port's modules.
+"""Carry the JAX package's variables across into the port's modules, and
+back.
 
 `load_jax_variables(model, variables)` takes the JAX package's
 `{"params": ..., "batch_stats": ...}` tree as nested dicts of numpy arrays
@@ -13,16 +14,22 @@ config.  Names follow the JAX module tree; layouts move as follows:
 - BatchNorm statistics `mean` / `var` -> `running_mean` / `running_var`;
 - the positional conv's `pos_conv_v` / `pos_conv_g` / `pos_conv_bias` as is.
 
-Any missing, unused or mis-shaped leaf raises.
+Any missing, unused or mis-shaped leaf raises.  `export_jax_variables(model)`
+is the exact inverse: the port's parameters and running statistics as the
+JAX package's tree of numpy arrays, so that tests compare updated weights
+leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from peppa_tpu_torch.models.layers import (BatchNorm, Conv, Dense, GroupNorm,
+                                           LayerNorm)
 
 # flax auto-names of the poolers -> the port's attribute name
 _RENAME = {"AttentionPool_0": "pool", "VideoAttentionPool_0": "pool"}
@@ -85,3 +92,65 @@ def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
     errors += [f"missing {name}" for name in sorted(set(targets) - used)]
     if errors:
         raise ValueError("load_jax_variables: " + "; ".join(errors))
+
+
+# module type -> {port leaf: (collection, JAX leaf)}
+_EXPORT_LEAF = {
+    Dense: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    Conv: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    LayerNorm: {"weight": ("params", "scale"), "bias": ("params", "bias")},
+    GroupNorm: {"weight": ("params", "scale"), "bias": ("params", "bias")},
+    BatchNorm: {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var")},
+}
+
+
+def _from_torch_layout(leaf: str, x: np.ndarray) -> np.ndarray:
+    if leaf != "kernel":
+        return x
+    if x.ndim == 2:  # Linear (out, in) -> Dense (in, out)
+        return x.T
+    # Conv (out, in, *spatial) -> (*spatial, in, out)
+    return np.transpose(x, tuple(range(2, x.ndim)) + (1, 0))
+
+
+def _jax_path(model: nn.Module, name: str) -> Tuple[str, Tuple[str, ...]]:
+    """(collection, JAX path) of the port's parameter or buffer `name`."""
+    *mods, leaf = name.split(".")
+    path = []
+    for i, m in enumerate(mods):
+        sub = model.get_submodule(".".join(mods[:i + 1]))
+        path.append(f"{type(sub).__name__}_0"
+                    if m == "pool" and f"{type(sub).__name__}_0" in _RENAME
+                    else m)
+    owner = model.get_submodule(".".join(mods)) if mods else model
+    table = _EXPORT_LEAF.get(type(owner))
+    if table is None:  # the positional conv's own parameters keep their names
+        return "params", tuple(path) + (leaf,)
+    collection, jax_leaf = table[leaf]
+    if isinstance(owner, BatchNorm):  # the JAX BatchNorm wraps flax's as "bn"
+        path.append("bn")
+    return collection, tuple(path) + (jax_leaf,)
+
+
+def export_jax_variables(model: nn.Module,
+                         values: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Dict[str, Any]:
+    """The port's `{"params": ..., "batch_stats": ...}` in the JAX package's
+    names and layouts, as nested dicts of float32 numpy arrays: the inverse
+    of `load_jax_variables`.  `values` (name -> tensor, e.g. gradients)
+    exports those tensors under the names of the model's own instead."""
+    if values is None:
+        values = {k: v for k, v in model.state_dict().items()}
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for name, tensor in values.items():
+        collection, path = _jax_path(model, name)
+        node = out[collection]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        x = tensor.detach().float().cpu().numpy()
+        node[path[-1]] = np.array(_from_torch_layout(path[-1], x), order="C")
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out

@@ -71,18 +71,25 @@ class PeppaPig(nn.Module):
     def encode_audio(self, audio: torch.Tensor,
                      sample_lengths: Optional[torch.Tensor] = None,
                      train: bool = False, tap: str = "embedding",
-                     mask_padding: bool = False) -> torch.Tensor:
-        """Embed (B, S) waveforms to the shared 512-d space."""
+                     mask_padding: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """Embed (B, S) waveforms to the shared 512-d space; training draws
+        dropout and layer-drop from `generator`."""
         return self.audio_encoder(audio, sample_lengths, not train, tap,
-                                  mask_padding)
+                                  mask_padding, generator)
 
-    def forward(self, batch: ClipBatch, train: bool = False) -> ClipBatch:
+    def forward(self, batch: ClipBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> ClipBatch:
         """Video pooling is masked by `video_frames`; audio pooling is not
-        (`mask_padding=False`), as in the JAX package."""
+        (`mask_padding=False`), as in the JAX package.  `train=True` runs
+        BatchNorm on batch statistics (updating the running ones) and the
+        audio tower's dropout and layer-drop, drawn from `generator`."""
         if not isinstance(batch, ClipBatch):
             raise TypeError(f"expected a ClipBatch, got {type(batch).__name__}")
         v = self.encode_video(batch.video, batch.video_frames, train=train)
-        a = self.encode_audio(batch.audio, batch.audio_samples, train=train)
+        a = self.encode_audio(batch.audio, batch.audio_samples, train=train,
+                              generator=generator)
         return ClipBatch(video=v, audio=a,
                          video_duration=batch.video_duration,
                          audio_duration=batch.audio_duration,

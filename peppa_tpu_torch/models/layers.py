@@ -4,8 +4,9 @@ Mirrors peppa_tpu/models/layers.py (the poolers) and the parameter
 conventions of peppa_tpu/models/qlayers.py.  Parameters are float32, as the
 JAX package keeps them; `Dense` and `Conv` cast input and weights to their
 compute dtype at call time (bf16 on the bf16 model), `LayerNorm` and
-`GroupNorm` compute and return float32, and `BatchNorm` (eval mode, running
-statistics) computes in float32 and returns its dtype, as flax does.
+`GroupNorm` compute and return float32, and `BatchNorm` computes in float32
+and returns its dtype, as flax does.  `Dropout` draws its mask from the
+`torch.Generator` it is given.
 
 Weight layouts are PyTorch's: Linear (out, in), Conv (out, in, *kernel).
 `models/convert.py` moves the JAX package's layouts into them.
@@ -91,11 +92,17 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm on channels-first input, eps 1e-5.
+    """BatchNorm on channels-first input, eps 1e-5: flax 0.12.3's
+    `BatchNorm(momentum=0.9, epsilon=1e-5)` as peppa_tpu/models/video3d.py
+    wraps it.
 
-    Computes (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 with
-    float32 running statistics and returns `dtype` (flax's order of
-    operations).  Training mode comes with the training slice.
+    Computes (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 and
+    returns `dtype` (flax's order of operations).  Eval mode uses the running
+    statistics.  Train mode uses the batch's, in float32: the mean and the
+    *biased* variance E[x^2] - E[x]^2 clipped at 0 (flax's
+    `use_fast_variance`), and updates the running ones as
+    0.9 * running + 0.1 * batch without gradient.  (`F.batch_norm` would
+    update `running_var` with the unbiased variance: another function.)
     """
 
     def __init__(self, features: int, dtype: torch.dtype):
@@ -106,12 +113,49 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
-        y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        if train:
+            axes = (0,) + tuple(range(2, x.ndim))
+            xf = x.float()
+            mean = torch.mean(xf, dim=axes)
+            var = torch.clamp(torch.mean(xf * xf, dim=axes) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean
+                                        + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        y = ((x.float() - mean.view(shape)) * mul.view(shape)
              + self.bias.view(shape))
         return y.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout(rate)`: keeps each element with probability
+    1 - rate and scales it by 1 / (1 - rate), drawing the mask from
+    `generator`; the identity when `deterministic` or rate 0, zeros at
+    rate 1."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, deterministic: bool,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if deterministic or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("dropout needs a torch.Generator in training")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
 
 
 class AttentionPool(nn.Module):

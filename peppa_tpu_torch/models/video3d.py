@@ -1,10 +1,11 @@
-"""R(2+1)D-18 video encoder, eval mode, channels-last at its public face.
+"""R(2+1)D-18 video encoder, channels-last at its public face.
 
 Mirrors peppa_tpu/models/video3d.py for `version="r2plus1d_18"`: stem
 (1,7,7) stride (1,2,2) -> 45 ch -> BN/ReLU -> (3,1,1) -> 64 ch -> BN/ReLU,
 then four stages of two BasicBlocks of (2+1)D convs (spatial (1,3,3), BN,
 ReLU, temporal (3,1,1)), widths (64, 128, 256, 512), strides (1, 2, 2, 2).
-BatchNorm runs on running statistics (eval mode).
+BatchNorm runs on the running statistics in eval mode; `train=True` uses
+the batch's and updates the running ones (`models/layers.py::BatchNorm`).
 
 Input is (B, T, H, W, C) uint8 or float in [0, 1], as in the JAX package;
 it is normalised in float32, cast to the model dtype and permuted to
@@ -51,8 +52,8 @@ class Conv2Plus1D(nn.Module):
         self.bn_mid = BatchNorm(mid, bn_dtype)
         self.temporal = _conv(mid, features, (3, 1, 1), (stride, 1, 1), dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.temporal(torch.relu(self.bn_mid(self.spatial(x))))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.temporal(torch.relu(self.bn_mid(self.spatial(x), train)))
 
 
 class BasicBlock(nn.Module):
@@ -73,12 +74,12 @@ class BasicBlock(nn.Module):
                                     (stride,) * 3, dtype)
             self.bn_down = BatchNorm(features, bn_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x, train), train))
+        out = self.bn2(self.conv2(out, train), train)
         identity = x
         if self.downsample is not None:
-            identity = self.bn_down(self.downsample(x))
+            identity = self.bn_down(self.downsample(x), train)
         return torch.relu(out + identity)
 
 
@@ -104,11 +105,11 @@ class VideoResNetTrunk(nn.Module):
                 self.blocks.append(name)
                 in_features = width
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.stem_bn1(self.stem_spatial(x)))
-        x = torch.relu(self.stem_bn2(self.stem_temporal(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = torch.relu(self.stem_bn1(self.stem_spatial(x), train))
+        x = torch.relu(self.stem_bn2(self.stem_temporal(x), train))
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return x  # (B, 512, T', H', W')
 
 
@@ -139,13 +140,10 @@ class R3DEncoder(nn.Module):
     def forward(self, video: torch.Tensor,
                 frame_lengths: Optional[torch.Tensor] = None,
                 train: bool = False, tap: str = "embedding") -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "training-mode BatchNorm comes with the training slice")
         if video.dtype == torch.uint8:
             video = video.float() / 255.0
         x = (video - self.mean.to(video.dtype)) / self.std.to(video.dtype)
-        x = self.trunk(x.to(self.dtype).permute(0, 4, 1, 2, 3))
+        x = self.trunk(x.to(self.dtype).permute(0, 4, 1, 2, 3), train)
         x = x.permute(0, 2, 3, 4, 1)  # channels-last (B, T', H', W', 512)
         if tap == "features":
             return x

@@ -1,4 +1,4 @@
-"""wav2vec2-base audio encoder, deterministic forward, with the tap points.
+"""wav2vec2-base audio encoder with the tap points, eval and training.
 
 Mirrors peppa_tpu/models/wav2vec2.py (module names, parameters and the
 bf16 precision policy):
@@ -9,26 +9,37 @@ bf16 precision policy):
 - feature projection: LayerNorm(512) -> Dense(768);
 - weight-normed grouped positional conv (k=128, 16 groups, padding 64,
   trailing element trimmed), GELU, residual add, LayerNorm;
-- post-norm transformer layers: MHA(768, 12 heads) through the attention
-  kernel (`ops/cuda/attention.py`) and FFN(3072) with GELU; the LayerNorms
-  return float32, so in bf16 the residual stream is float32 and only the
-  Dense layers run in bf16;
+- post-norm transformer layers: MHA(768, 12 heads) and FFN(3072) with
+  GELU; the LayerNorms return float32, so in bf16 the residual stream is
+  float32 and only the Dense layers run in bf16;
 - aux head Dense(768 -> 28).
 
+Training (`deterministic=False`) adds the JAX module's dropout (after
+`proj`, after `encoder_ln`, on the attention output, after the FFN GELU and
+after `ffn_out`, on the attention probabilities) and layer-drop (one
+Bernoulli(1 - layer_drop) per layer and forward; the layer runs and
+`torch.where` selects, as `jnp.where` does), all drawn from the one
+`torch.Generator` the caller passes.  Attention goes through the attention
+kernels (`ops/cuda/attention.py`, forward and backward) when the forward is
+deterministic or `attention_dropout` is 0; otherwise through the JAX
+module's own XLA route (scores, -inf mask, softmax, dropout on the
+probabilities, PV), which the dropout mask needs.  The config chooses the
+route.
+
 Taps: 'conv' (B, T, 512), 'context' (B, T, 768), 'logits' (B, T, 28).
-Dropout and layer-drop come with the training slice; `deterministic=False`
-raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from peppa_tpu_torch.models.layers import (Conv, Dense, GroupNorm, LayerNorm,
+from peppa_tpu_torch.models.layers import (Conv, Dense, Dropout, GroupNorm,
+                                           LayerNorm, length_mask,
                                            make_audio_pool)
 from peppa_tpu_torch.ops.cuda.attention import mha_attention
 from peppa_tpu_torch.ops.gelu import gelu
@@ -67,12 +78,6 @@ class Wav2Vec2Config:
     layer_drop: float = 0.05
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
-
-
-def _deterministic_only(deterministic: bool) -> None:
-    if not deterministic:
-        raise NotImplementedError(
-            "dropout and layer-drop come with the training slice")
 
 
 class ConvFeatureExtractor(nn.Module):
@@ -132,26 +137,42 @@ class ConvPositionalEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention; the score/softmax/PV chain is the
-    attention kernel on the card (its plain version on the CPU)."""
+    """Multi-head self-attention: the attention kernels when deterministic
+    or without attention dropout, else the plain route with dropout on the
+    probabilities (module doc)."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
         d = cfg.embed_dim
         self.heads = cfg.num_heads
+        self.dtype = dtype
         self.q_proj = Dense(d, d, dtype)
         self.k_proj = Dense(d, d, dtype)
         self.v_proj = Dense(d, d, dtype)
         self.out_proj = Dense(d, d, dtype)
+        self.attn_dropout = Dropout(cfg.attention_dropout)
 
-    def forward(self, x: torch.Tensor,
-                lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, d = x.shape
         hd = d // self.heads
         q = self.q_proj(x).view(b, t, self.heads, hd)
         k = self.k_proj(x).view(b, t, self.heads, hd)
         v = self.v_proj(x).view(b, t, self.heads, hd)
-        out = mha_attention(q, k, v, lengths=lengths, scale=hd ** -0.5)
+        scale = hd ** -0.5
+        if deterministic or self.attn_dropout.rate == 0.0:
+            out = mha_attention(q, k, v, lengths=lengths, scale=scale)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(),
+                                  k.float())
+            if lengths is not None:
+                mask = length_mask(lengths, t)
+                logits = logits.masked_fill(~mask[:, None, None, :],
+                                            -math.inf)
+            probs = torch.softmax(logits, dim=-1).to(self.dtype)
+            probs = self.attn_dropout(probs, False, generator)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.out_proj(out.reshape(b, t, d))
 
 
@@ -165,11 +186,18 @@ class TransformerLayer(nn.Module):
         self.ffn_in = Dense(cfg.embed_dim, cfg.ffn_dim, dtype)
         self.ffn_out = Dense(cfg.ffn_dim, cfg.embed_dim, dtype)
         self.ln2 = LayerNorm(cfg.embed_dim)
+        self.dropout = Dropout(cfg.dropout)
+        self.activation_dropout = Dropout(cfg.activation_dropout)
 
-    def forward(self, x: torch.Tensor,
-                lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.ln1(x + self.attention(x, lengths))
-        y = self.ffn_out(gelu(self.ffn_in(x)))
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        attn = self.attention(x, lengths, deterministic, generator)
+        attn = self.dropout(attn, deterministic, generator)
+        x = self.ln1(x + attn)
+        y = self.activation_dropout(gelu(self.ffn_in(x)), deterministic,
+                                    generator)
+        y = self.dropout(self.ffn_out(y), deterministic, generator)
         return self.ln2(x + y)
 
 
@@ -193,6 +221,7 @@ class Wav2Vec2(nn.Module):
         self.proj = Dense(c, cfg.embed_dim, dtype)
         self.pos_conv = ConvPositionalEmbedding(cfg, dtype)
         self.encoder_ln = LayerNorm(cfg.embed_dim)
+        self.dropout = Dropout(cfg.dropout)
         for i in range(cfg.num_layers):
             self.add_module(f"layer{i}", TransformerLayer(cfg, dtype))
         self.aux = Dense(cfg.embed_dim, cfg.num_out, dtype)
@@ -200,20 +229,32 @@ class Wav2Vec2(nn.Module):
     def forward(self, waveform: torch.Tensor,
                 sample_lengths: Optional[torch.Tensor] = None,
                 deterministic: bool = True, tap: str = "logits",
-                mask_padding: bool = False):
-        """waveform (B, S) -> (features at `tap`, frame lengths or None)."""
-        _deterministic_only(deterministic)
+                mask_padding: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """waveform (B, S) -> (features at `tap`, frame lengths or None).
+        Training (`deterministic=False`) draws dropout and layer-drop from
+        `generator`."""
         feats = self.feature_extractor(waveform)
         frame_lengths = (conv_output_length(sample_lengths)
                          if sample_lengths is not None else None)
         if tap == "conv":
             return feats, frame_lengths
 
-        x = self.proj(self.proj_ln(feats))
+        x = self.dropout(self.proj(self.proj_ln(feats)), deterministic,
+                         generator)
         x = self.encoder_ln(x + self.pos_conv(x))
+        x = self.dropout(x, deterministic, generator)
         attn_lengths = frame_lengths if mask_padding else None
+        layer_drop = self.cfg.layer_drop
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer{i}")(x, attn_lengths)
+            layer = getattr(self, f"layer{i}")
+            if not deterministic and layer_drop > 0:
+                keep = torch.rand((), generator=generator,
+                                  device=x.device) < 1.0 - layer_drop
+                y = layer(x, attn_lengths, deterministic, generator)
+                x = torch.where(keep, y, x)
+            else:
+                x = layer(x, attn_lengths, deterministic, generator)
         if tap == "context":
             return x, frame_lengths
 
@@ -244,7 +285,8 @@ class Wav2Vec2Encoder(nn.Module):
     def forward(self, waveform: torch.Tensor,
                 sample_lengths: Optional[torch.Tensor] = None,
                 deterministic: bool = True, tap: str = "embedding",
-                mask_padding: bool = False) -> torch.Tensor:
+                mask_padding: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if waveform.ndim == 3:  # (B, 1, S) channel layout
             waveform = waveform[:, 0, :]
         if waveform.dtype == torch.int16:
@@ -254,7 +296,7 @@ class Wav2Vec2Encoder(nn.Module):
             trunk_tap = tap
         feats, frame_lengths = self.wav2vec2(waveform, sample_lengths,
                                              deterministic, trunk_tap,
-                                             mask_padding)
+                                             mask_padding, generator)
         if tap in ("conv", "context", "logits"):
             return feats
 

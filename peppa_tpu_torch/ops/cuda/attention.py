@@ -1,22 +1,27 @@
-"""Multi-head attention forward: the CUDA kernel and its plain version.
+"""Multi-head attention, forward and backward: CUDA kernels and their plain
+versions.
 
-Replaces the TPU kernel peppa_tpu/ops/pallas/attention.py (`_fwd_kernel`
-via `_attend_fwd`, public `mha_attention`).  The kernel is
-`peppa_tpu_torch/csrc/attention.cu`; its source note gives its bound on an
-H100 and its design (flash-style, online softmax in float32, any T; bf16 on
-the tensor cores, float32 on the CUDA cores).
+Replaces the TPU kernels of peppa_tpu/ops/pallas/attention.py: `_fwd_kernel`
+via `_attend_fwd` and `_bwd_kernel` via `_attend_bwd`, wrapped there in a
+`jax.custom_vjp` (public `mha_attention`).  The kernels are in
+`peppa_tpu_torch/csrc/attention.cu`; its source note gives their bounds on
+an H100 and their design (forward: flash-style, online softmax in float32,
+any T; backward: P recomputed from the forward's log-sum-exp, two grids
+without atomics; bf16 on the tensor cores, float32 on the CUDA cores).
 
 `mha_attention` takes (B, T, H, hd) q/k/v in float32 or bfloat16 and returns
-the same layout in q's dtype.  On CPU tensors it runs the plain version; on
-CUDA tensors it launches the kernel or raises.  Gradients come with the
-training slice: a CUDA tensor that requires grad is refused.
+the same layout in q's dtype.  When autograd needs its gradient it runs as a
+`torch.autograd.Function` whose forward also keeps the log-sum-exp and whose
+backward is the backward kernel; otherwise (serving, `inference_mode`) it is
+the forward kernel alone.  On CPU tensors both directions run the plain
+versions; on CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,48 +46,183 @@ def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def mha_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor,
+                            lengths: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `mha_attention_plain` for the output gradient `do`,
+    by `_bwd_kernel`'s formulas in float32, in q's dtype:
+
+        P = softmax(scale q k^T, keys >= lengths at -1e30)
+        dV = P^T dO;  dP = dO V^T;  dS = P o (dP - rowsum(dP o P))
+        dQ = dS K scale;  dK = dS^T Q scale
+
+    dS is zero at masked keys (P is exactly 0 there), so masked keys get
+    dK = dV = 0.  A row of length 0 scores every key at the constant -1e30:
+    P is uniform over T and dS = 0, so dQ = dK = 0 and dV averages dO.
+    """
+    b, t, h, hd = q.shape
+    if scale is None:
+        scale = hd ** -0.5
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf)
+    mask = None
+    if lengths is not None:
+        mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    if mask is not None:
+        ds = ds.masked_fill(~mask[:, None, None, :], 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point, built and loaded at first use."""
+def _kernels():
+    """The C entry points (forward, backward), built and loaded at first
+    use."""
     from peppa_tpu_torch.ops.cuda.build import library
 
-    fn = library("attention").peppa_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    lib = library("attention")
+    fwd = lib.peppa_attention_fwd
+    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    fwd.restype = ctypes.c_int
+    bwd = lib.peppa_attention_bwd
+    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    return fwd, bwd
 
 
-def _launch(q, k, v, lengths, scale) -> torch.Tensor:
-    b, t, h, hd = q.shape
+def _check(q, k, v) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"attention kernel takes float32/bfloat16, got {q.dtype}")
-    if hd not in _HEAD_DIMS:
+    if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"attention kernel head_dim must be in {_HEAD_DIMS}")
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
-    if any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "the attention backward kernel comes with the training slice")
-    lens_ptr = None
-    if lengths is not None:
-        if lengths.shape != (b,):
-            raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
-        lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-        lens_ptr = lengths.data_ptr()
+
+
+def _lengths_arg(lengths, q):
+    """(lengths as contiguous int32 on q's device or None, its pointer)."""
+    if lengths is None:
+        return None, None
+    b = q.shape[0]
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    return lengths, lengths.data_ptr()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(q, k, v, lengths, scale, with_lse: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel: (out, float32 (B, H, T) log-sum-exp or None)."""
+    _check(q, k, v)
+    b, t, h, hd = q.shape
+    lengths, lens_ptr = _lengths_arg(lengths, q)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(), *out.stride())
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), lens_ptr, _DTYPES[q.dtype], b, t, h,
-                        hd, strides, float(scale), stream)
+        err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(),
+                            lse.data_ptr() if with_lse else None, lens_ptr,
+                            _DTYPES[q.dtype], b, t, h, hd, strides,
+                            float(scale), _stream(q))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     mha_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _launch_bwd(q, k, v, do, lse, lengths, scale
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    _check(q, k, v)
+    b, t, h, hd = q.shape
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError("do must match q in shape and device")
+    if lse is None or lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError("the backward kernel needs the forward's float32 "
+                         f"(B, H, T) log-sum-exp, got {lse}")
+    do = do.to(q.dtype)
+    lse = lse.contiguous()
+    lengths, lens_ptr = _lengths_arg(lengths, q)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 28)(
+        *q.stride(), *k.stride(), *v.stride(), *do.stride(), *dq.stride(),
+        *dk.stride(), *dv.stride())
+    with torch.cuda.device(q.device):
+        err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), lens_ptr,
+                            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            delta.data_ptr(), _DTYPES[q.dtype], b, t, h, hd,
+                            strides, float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(
+            f"attention backward kernel launch failed: cudaError {err}")
+    mha_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _device_of(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
+    return q.device.type
+
+
+def mha_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None,
+                      lse: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in q's dtype.  CPU tensors: the plain version; CUDA
+    tensors: the backward kernel, which needs `lse`, the forward kernel's
+    log-sum-exp of the same q, k, lengths and scale."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _device_of(q) == "cpu":
+        return mha_attention_bwd_plain(q, k, v, do, lengths, scale)
+    return _launch_bwd(q, k, v, do, lse, lengths, scale)
+
+
+mha_attention_bwd.launches = 0  # kernel launches (CPU calls do not count)
+
+
+class _Attention(torch.autograd.Function):
+    """`mha_attention` under autograd: the forward keeps q, k, v, lengths
+    and (on the card) the log-sum-exp; the backward is the backward kernel
+    (the plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, scale):
+        if q.device.type == "cpu":
+            out, lse = mha_attention_plain(q, k, v, lengths, scale), None
+        else:
+            out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, lengths, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths, lse = ctx.saved_tensors
+        dq, dk, dv = mha_attention_bwd(q, k, v, do, lengths, ctx.scale, lse)
+        return dq, dk, dv, None, None
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,15 +231,17 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention, (B, T, H, hd) in and out (q's dtype).
 
     `lengths` (B,) marks the valid keys of each example (>= 1; None: all
-    T).  CPU tensors: the plain version; CUDA tensors: the kernel.
+    T).  CPU tensors: the plain versions; CUDA tensors: the kernels.
+    Differentiable in q, k and v.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    device = _device_of(q)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _Attention.apply(q, k, v, lengths, scale)
+    if device == "cpu":
         return mha_attention_plain(q, k, v, lengths, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
-    return _launch(q, k, v, lengths, scale)
+    return _launch(q, k, v, lengths, scale)[0]
 
 
-mha_attention.launches = 0  # kernel launches (CPU calls do not count)
+mha_attention.launches = 0  # forward kernel launches (CPU calls do not count)

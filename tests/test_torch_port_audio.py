@@ -80,6 +80,17 @@ def test_mask_padding_matches_jax(towers):
 
 
 def test_dropout_path_not_ported_yet(towers):
+    """The dropout path, refused before the training slice, now runs: it
+    draws from the generator it is given (same seed, same output), differs
+    from the deterministic forward, and needs a generator."""
     _, _, port = towers
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, 3200), deterministic=False)
+    audio = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 3200)).astype(np.float32))
+    run = lambda seed: port(audio, deterministic=False,
+                            generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        assert torch.equal(run(1), run(1))
+        assert not torch.equal(run(1), run(2))
+        assert not torch.allclose(run(1), port(audio), atol=1e-3)
+        with pytest.raises(ValueError, match="Generator"):
+            port(audio, deterministic=False)

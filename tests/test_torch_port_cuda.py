@@ -9,10 +9,14 @@ nothing of JAX, so on a machine with a card and no JAX it runs alone:
 import pytest
 import torch
 
-from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
+from peppa_tpu_torch.ops.cuda.attention import (_launch, mha_attention,
+                                                mha_attention_bwd,
+                                                mha_attention_bwd_plain,
                                                 mha_attention_plain)
 from peppa_tpu_torch.ops.cuda.loss import (fused_triplet_loss,
                                            fused_triplet_loss_plain)
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # backward, as chip_smoke
 
 pytestmark = pytest.mark.cuda
 
@@ -86,10 +90,78 @@ def test_loss_kernel_is_deterministic(cuda):
                for _ in range(5))
 
 
-def test_kernels_refuse_grad(cuda):
-    q = torch.randn(1, 8, 2, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        mha_attention(q, q, q)
-    v = torch.randn(4, 8, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fused_triplet_loss(v, v)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [40, 77, 316])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_attention_bwd_kernel_matches_plain(cuda, dtype, t, hd):
+    gen = torch.Generator(device=cuda).manual_seed(t * hd)
+    q, k, v, do = (torch.randn(4, t, 12, hd, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    lens = torch.tensor([t, t // 2, 3, 1], device=cuda)
+    for lengths in (None, lens):
+        _, lse = _launch(q, k, v, lengths, hd ** -0.5, with_lse=True)
+        before = mha_attention_bwd.launches
+        got = mha_attention_bwd(q, k, v, do, lengths, lse=lse)
+        assert mha_attention_bwd.launches == before + 1
+        want = mha_attention_bwd_plain(q, k, v, do, lengths)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype
+            torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+        if lengths is not None:  # masked keys: exactly zero dK and dV
+            for g in got[1:]:
+                assert not g[1, t // 2:].any() and not g[3, 1:].any()
+        again = mha_attention_bwd(q, k, v, do, lengths, lse=lse)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_attention_bwd_kernel_length_zero(cuda):
+    """Length 0 follows the forward (P uniform over T): dQ = dK = 0 and dV
+    averages dO, as the plain version defines it."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(2, 50, 2, 32, generator=gen, device=cuda)
+                   for _ in range(4))
+    lens = torch.tensor([50, 0], device=cuda)
+    _, lse = _launch(q, k, v, lens, 32 ** -0.5, with_lse=True)
+    got = mha_attention_bwd(q, k, v, do, lens, lse=lse)
+    want = mha_attention_bwd_plain(q, k, v, do, lens)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    assert not got[0][1].any() and not got[1][1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_autograd_runs_both_kernels(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(2, 99, 12, 64, generator=gen, device=cuda)
+               .to(dtype).requires_grad_() for _ in range(3))
+    lens = torch.tensor([99, 40], device=cuda)
+    do = torch.randn(2, 99, 12, 64, generator=gen, device=cuda).to(dtype)
+    before = (mha_attention.launches, mha_attention_bwd.launches)
+    out = mha_attention(q, k, v, lens)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (mha_attention.launches, mha_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = mha_attention_bwd_plain(q.detach(), k.detach(), v.detach(), do,
+                                   lens)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    with torch.inference_mode():  # serving: the forward kernel alone
+        mha_attention(q, k, v)
+    assert mha_attention_bwd.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("b", [8, 13, 32])
+def test_loss_kernel_gradient_matches_plain(cuda, b):
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    v = torch.randn(b, 512, generator=gen, device=cuda, requires_grad=True)
+    a = torch.randn(b, 512, generator=gen, device=cuda, requires_grad=True)
+    before = fused_triplet_loss.launches
+    got = torch.autograd.grad(fused_triplet_loss(v, a, 0.2), (v, a))
+    assert fused_triplet_loss.launches == before + 1
+    want = torch.autograd.grad(fused_triplet_loss_plain(v, a, 0.2), (v, a))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)

@@ -85,6 +85,26 @@ def test_midplanes_matches_jax():
 
 
 def test_train_mode_not_ported_yet(towers):
-    _, _, port = towers
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, 8, 32, 32, 3), train=True)
+    """Train mode, refused before the training slice, now runs: BatchNorm on
+    batch statistics, running statistics updated as the JAX module's
+    `mutable=["batch_stats"]` apply updates them."""
+    jax_enc, variables, port = towers
+    video = np.random.default_rng(4).integers(
+        0, 256, size=(2, 8, 32, 32, 3)).astype(np.uint8)
+    want, mut = jax_enc.apply(variables, jnp.asarray(video), None, True,
+                              mutable=["batch_stats"])
+    saved = {k: v.clone() for k, v in port.state_dict().items()}
+    try:
+        with torch.no_grad():
+            got = port(torch.from_numpy(video), train=True).numpy()
+        np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+        stats = jax.tree_util.tree_flatten_with_path(mut["batch_stats"])[0]
+        for path, x in stats:
+            keys = [k.key for k in path if k.key != "bn"]
+            name = ".".join(keys[:-1] + [{"mean": "running_mean",
+                                          "var": "running_var"}[keys[-1]]])
+            np.testing.assert_allclose(port.state_dict()[name].numpy(),
+                                       np.asarray(x), rtol=TOL, atol=TOL,
+                                       err_msg=name)
+    finally:
+        port.load_state_dict(saved)
