@@ -6,15 +6,18 @@
 Phases:
   1. the card's name and power limit; build the CUDA kernels from
      `peppa_tpu_torch/csrc/` (seconds printed);
-  2. each kernel against its plain PyTorch version on the card, at the main
+  2. the bf16 attention forward's registers and spill bytes (`ptxas -v`);
+     each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, with its time, the plain version's and a library
-     yardstick's: the attention forward (serving shapes), the attention
-     backward (training shapes), the triplet-loss forward and, beside it,
-     the loss's closed-form backward;
+     yardstick's: the attention forward (serving shapes, T=316 and 826),
+     the attention backward (training shapes), the triplet-loss forward
+     and, beside it, the loss's closed-form backward;
   3. the serving/eval forward of the base configuration (`hparams_base.yaml`:
      wav2vec2-base + R(2+1)D-18, bf16) at full width from seeded random
      weights: `EncoderService` warm-up and mixed-length requests over every
-     bucket, then `eval_step` on a B=32 2.3 s batch;
+     bucket, then `eval_step` on a B=32 2.3 s batch; then the encode time
+     of both towers at B=32 on the 2.3 s bucket and of the audio tower
+     alone on the 6.0 s bucket (T=826);
   4. the training step of the same configuration at full width and depth,
      bf16, micro-batch 8 of 2.3 s clips, `accumulate_grad_batches` 8, for 2
      optimizer steps (16 micro-steps), twice: (a) `audio.dropout: 0.0`,
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +97,35 @@ def bound(n_bytes: float, flops: float, dtype: str):
 
 
 # ------------------------------------------------------------------ phase 2
+def print_forward_resources() -> None:
+    """Registers and spill bytes of each bf16 attention forward
+    instantiation (head dim, vector path), from `ptxas -v` in this
+    process's build."""
+    from peppa_tpu_torch.ops.cuda import build
+
+    log = build.build_log.get("attention")
+    if log is None:
+        print("attention_fwd_bf16_kernel: built by an earlier process, no "
+              "ptxas report here")
+        return
+    name, spills = None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        tag = re.search(r"attention_fwd_bf16_kernelILi(\d+)ELb([01])E",
+                        name or "")
+        if m and tag:
+            print(f"attention_fwd_bf16_kernel<hd {tag.group(1)}, vec "
+                  f"{tag.group(2)}>: {m.group(1)} registers, spill stores "
+                  f"{spills[0]} bytes, spill loads {spills[1]} bytes")
+
+
 def check_attention(report: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -103,6 +136,7 @@ def check_attention(report: dict) -> None:
     b, h, hd = 32, 12, 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
+    rows = []  # bf16 times at each T
     for t in (316, 826):
         ragged = torch.randint(1, t + 1, (b,), generator=gen, device="cuda",
                                dtype=torch.int32)
@@ -135,11 +169,13 @@ def check_attention(report: dict) -> None:
             print(f"attention T={t} {name}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} "
                   f"ms ({by})")
-            if t == 316 and dtype == torch.bfloat16:
-                report["attention"] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bms, "bound_by": by}
-    report["attention"]["max_abs_err"] = worst
+            if dtype == torch.bfloat16:
+                rows.append({"T": t, "ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": bms,
+                             "bound_by": by})
+    # the kernel's line: T=316 (the 2.3 s bucket), with T=826 beside it
+    report["attention"] = {**{k: v for k, v in rows[0].items() if k != "T"},
+                           "max_abs_err": worst, "shapes": rows}
 
 
 def check_attention_bwd(report: dict) -> None:
@@ -153,6 +189,7 @@ def check_attention_bwd(report: dict) -> None:
     scale = hd ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
+    rows = []  # bf16 times at each T
     for t in (316, 826):
         ragged = torch.randint(1, t + 1, (b,), generator=gen, device="cuda",
                                dtype=torch.int32)
@@ -200,12 +237,14 @@ def check_attention_bwd(report: dict) -> None:
             print(f"attention bwd T={t} {name}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
                   f"{bms:.4f} ms ({by})")
-            if t == 316 and dtype == torch.bfloat16:
-                report["attention_bwd"] = {
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bms, "bound_by": by}
+            if dtype == torch.bfloat16:
+                rows.append({"T": t, "ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": bms,
+                             "bound_by": by})
             del out
-    report["attention_bwd"]["max_abs_err"] = worst
+    report["attention_bwd"] = {
+        **{k: v for k, v in rows[0].items() if k != "T"},
+        "max_abs_err": worst, "shapes": rows}
 
 
 def check_loss(report: dict) -> None:
@@ -323,6 +362,7 @@ def run_slice(report: dict, card: str) -> None:
 
     from peppa_tpu_torch.config import default_config
     from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.models.wav2vec2 import conv_output_length
     from peppa_tpu_torch.ops.loss import contrastive
     from peppa_tpu_torch.ops.similarity import cosine_matrix
     from peppa_tpu_torch.serving import EncoderService
@@ -392,6 +432,26 @@ def run_slice(report: dict, card: str) -> None:
     report["encode_pairs_per_s"] = 32 / step
     print(f"encode: {step * 1e3:.2f} ms per B=32 2.3 s pair batch, "
           f"{32 / step:.1f} pairs/s ({card})")
+
+    # the audio tower alone at B=32 on the last bucket (6.0 s), where the
+    # attention forward weighs most (same clock and statistic)
+    seconds = svc.buckets[-1]
+    samples = int(round(seconds * cfg.data.audio_sample_rate))
+    long_audio = torch.from_numpy(rng.normal(scale=0.1, size=(32, samples))
+                                  .astype(np.float32)).cuda()
+    times = []
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.encode_audio(long_audio)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    audio_ms = float(np.median(times[1:])) * 1e3
+    report["audio_tower_ms_6s"] = audio_ms
+    print(f"audio tower: {audio_ms:.2f} ms per B=32 {seconds} s batch "
+          f"(T={int(conv_output_length(samples))} in the transformer) "
+          f"({card})")
     del svc, model
 
 
@@ -595,7 +655,8 @@ def main() -> int:
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
 
     report: dict = {}
-    for phase, fn in ((2, lambda: (check_attention(report),
+    for phase, fn in ((2, lambda: (print_forward_resources(),
+                                   check_attention(report),
                                    check_attention_bwd(report),
                                    check_loss(report))),
                       (3, lambda: run_slice(report, card)),
@@ -627,7 +688,9 @@ def main() -> int:
     train = {tag: {k: v for k, v in report[tag].items() if k != "losses"}
              for tag in ("train_deterministic", "train_default")}
     print(json.dumps({"encode_pairs_per_s": report["encode_pairs_per_s"],
-                      "batch": 32, "bucket_s": 2.3, **train,
+                      "batch": 32, "bucket_s": 2.3,
+                      "audio_tower_ms_6s": report["audio_tower_ms_6s"],
+                      **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
                       "card": card}))
     print(card)

@@ -5,32 +5,55 @@
 // (called from `_attend_fwd`): o = softmax(scale * q k^T, keys >= length[b]
 // set to -1e30) v, math in float32, output in q's dtype.
 //
-// Bound on an H100 at the main path's shapes (B=32, H=12, hd=64,
-// T=316..826, bf16): q, k, v and o are read/written once, 4*B*T*H*hd
-// elements (62 MB at T=316); the work is 4*B*H*T^2*hd operations (9.8
-// GFLOP).  On the tensor cores that is about 150 operations per byte
-// against the card's ~295, so the kernel is bound by bytes (19 us at T=316).
+// Bound on an H100 at the main path's shapes (B=32, H=12, hd=64, bf16):
+// q, k, v and o are read/written once, 4*B*T*H*hd elements (62 MB at
+// T=316, 19 us); the work is 4*B*H*T^2*hd operations (9.8 GFLOP at T=316,
+// 67 at T=826).  That is about 150 operations per byte at T=316 and 400 at
+// T=826 against the card's ~295 in bf16, so bytes bound the short buckets
+// and the tensor cores the long ones.  P v with P as a bf16 head and tail
+// (below) doubles that product: 1.5x the tensor work of a one-P kernel.
+// In practice the bf16 kernel is bound by its instruction stream, not by
+// bytes: `mma.sync` plus the softmax and the head/tail split on the CUDA
+// cores, which one warp runs in turn (PERF.md, section 6, has the times).
 //
-// Design.  The Pallas kernel held the whole (T, T) score block of one
-// (batch, head) in VMEM; a block's 227 KB of shared memory cannot, so both
-// kernels here are flash-style: grid (B*H, ceil(T/64)), 64 query rows per
-// block, K/V tiles of 64 keys staged through shared memory, an online
-// softmax (running max and sum in float32) per row, and q/k/v/o read and
-// written through their (b, t, h, d) strides, so the (B, T, H, hd)
+// Both forwards are flash-style: the Pallas kernel held the whole (T, T)
+// score block of one (batch, head) in VMEM, a block's 227 KB of shared
+// memory cannot, so K/V tiles of 64 keys pass through shared memory with an
+// online softmax (running max and sum in float32) per row, and q/k/v/o are
+// read and written through their (b, t, h, d) strides, so the (B, T, H, hd)
 // projections need no transpose copy.  Tiles past the last valid key are
 // skipped: their -1e30 scores contribute exp(-1e30 - m) = 0 exactly.  At
 // length 0 every key of the row scores -1e30, which averages v over T, as
 // the plain PyTorch version does.
 //
-// bfloat16 (the main path): `mma.sync` m16n8k16 on the tensor cores, four
-// warps of 16 query rows each.  S = q k^T takes bf16 operands, which are
-// exact, and accumulates in float32; the softmax runs in float32 registers;
-// P v splits P into a bf16 head and a bf16 remainder (two products), so P
-// keeps ~16 bits and the product stays float32 math to ~1e-5 relative.
-// float32: one thread per query row on the CUDA cores, full float32 FMAs
-// (no TF32), chunks of 16 keys per rescale.  When the caller asks (autograd
-// needs it), both write the float32 log-sum-exp of each row's scaled scores
-// for the backward; serving passes null and writes nothing more.
+// bfloat16 (the main path):
+// - K/V traffic.  At T=826 the K/V of all (b, h) take 81 MB, more than the
+//   50 MB L2.  The grid is head-major (query tile fastest), so the blocks
+//   of one (b, h) run together and share its K/V through L2, and a block
+//   takes 128 query rows (eight warps of 16), so each (b, h) reads its K/V
+//   ceil(T/128) times.
+// - Latency.  K/V tiles stream through two shared-memory stages by 16-byte
+//   `cp.async` copies (rows past T zero-filled): tile j+1 is in flight
+//   while tile j is multiplied.  q comes in the same way once; its A
+//   fragments and K's B fragments are read by `ldmatrix`, V's by
+//   `ldmatrix.trans`, from rows padded by 8 elements (no bank conflicts);
+//   o leaves through shared memory as 16-byte rows.  q/k/v/o views whose
+//   d stride is not 1 or whose rows are not 16-byte aligned take a
+//   synchronous staging loop instead (template flag VEC).
+// - Instructions.  `mma.sync` m16n8k16, ordered so that the products of
+//   one k-step are independent.  S = q k^T takes the bf16 inputs, which
+//   are exact, and accumulates in float32; the softmax runs in float32
+//   registers in log2 units (one FMA of the raw score by scale*log2(e) and
+//   one `ex2.approx` per element); the mask is applied on the tile holding
+//   the last key only; P v splits P into a bf16 head and a bf16 remainder
+//   (two products, packed conversions), so P keeps ~16 bits and the
+//   product stays float32 math to ~1e-5 relative, as the Pallas kernel's
+//   float32 p @ v.
+// float32 (tests and the card-vs-CPU check): grid (B*H, ceil(T/64)), one
+// thread per query row on the CUDA cores, full float32 FMAs (no TF32),
+// chunks of 16 keys per rescale.  When the caller asks (autograd needs it),
+// both write the float32 log-sum-exp of each row's scaled scores, in
+// natural-log units, for the backward; serving passes null.
 //
 // Backward (section "backward" below).  Replaces the TPU kernel
 // peppa_tpu/ops/pallas/attention.py `_bwd_kernel` (called from
@@ -54,11 +77,15 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block
+constexpr int kBlockQ = 64;   // query rows per block (float32 forward)
+constexpr int kFwdRows = 128; // query rows per block (bf16 forward)
+constexpr int kFwdThreads = kFwdRows * 2;  // eight warps of 16 rows
 constexpr int kBlockK = 64;   // keys per shared-memory tile
 constexpr int kChunk = 16;    // keys per online-softmax rescale (float32)
 constexpr int kPad = 8;       // bf16 row padding: conflict-free fragments
 constexpr float kMaskValue = -1e30f;  // the TPU kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, t, h, d;
@@ -182,13 +209,18 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// P's two bf16 parts: head = bf16(p), tail = bf16(p - head)
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// P's two bf16 parts: head = bf16(p), tail = bf16(p - head), each pair by
+// one packed round-to-nearest conversion (x0 in the low half)
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& head,
                                            uint32_t& tail) {
-  const bf16 h0 = __float2bfloat16(x0), h1 = __float2bfloat16(x1);
-  head = pack_bf16(h0, h1);
-  tail = pack_bf16(__float2bfloat16(x0 - __bfloat162float(h0)),
-                   __float2bfloat16(x1 - __bfloat162float(h1)));
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  head = as_u32(h);
+  tail = as_u32(__floats2bfloat162_rn(x0 - __low2float(h),
+                                      x1 - __high2float(h)));
 }
 
 // D += A (16x16, row) * B (16x8, col); bf16 in, float32 accumulate
@@ -227,172 +259,313 @@ __device__ __forceinline__ uint4 load8(const bf16* p, long long stride_d,
                     pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
 }
 
+// Four A fragments (16 rows x 16 d) or B fragments of a row-major tile,
+// as they lie.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* ptr) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 16 bytes from global to shared memory without registers; zeros when
+// !valid (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
+                                           bool valid) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// `rows` rows from r0 of one (b, h) slice into shared memory (zero at and
+// past `limit`), by the whole block: `cp.async` when VEC, else synchronous
+// strided loads
+template <int HD, bool VEC>
+__device__ __forceinline__ void stage_async(bf16 (*dst)[HD + kPad],
+                                            const bf16* base, Strides s,
+                                            int r0, int rows, int limit) {
+  for (int idx = threadIdx.x; idx < rows * HD / 8; idx += kFwdThreads) {
+    const int j = idx / (HD / 8);
+    const int d = idx % (HD / 8) * 8;
+    const int r = r0 + j;
+    const bool valid = r < limit;
+    if (VEC) {
+      cp_async16(&dst[j][d], valid ? base + r * s.t + d : base, valid);
+    } else {
+      *reinterpret_cast<uint4*>(&dst[j][d]) =
+          valid ? load8(base + r * s.t + d * s.d, s.d, false)
+                : make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// 2^x in one MUFU op; results below 2^-126 flush to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One K/V tile for one warp's 16 query rows: S = q k^T, the online softmax
+// in log2 units, o += P v.  MASK: the tile holds the last key, and keys at
+// and past `tile_keys` do not exist for these rows.  `scale_log2` is
+// scale*log2(e), or 0 for a row of length 0 (every valid key then weighs
+// the same).  The products of one k-step are independent, so the tensor
+// cores see up to eight of them in a row.
+template <int HD, bool MASK>
+__device__ __forceinline__ void fwd_tile(const bf16 (*kt)[HD + kPad],
+                                         const bf16 (*vt)[HD + kPad],
+                                         const uint32_t (&qa)[HD / 16][4],
+                                         float (&acc)[HD / 8][4],
+                                         float (&m)[2], float (&l)[2],
+                                         int tile_keys, float scale_log2,
+                                         int lane) {
+  constexpr int kSteps = HD / 16;         // k-steps of q k^T
+  constexpr int kDimTiles = HD / 8;       // n-tiles of P v
+  constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of q k^T
+  const int tq = lane % 4;
+
+  // S = q k^T for 16 rows x 64 keys; one ldmatrix gives the B fragments
+  // of key tiles j and j + 1 at one k-step: lanes 0-7 / 8-15 / 16-23 /
+  // 24-31 address (keys +0, d +0), (keys +0, d +8), (keys +8, d +0),
+  // (keys +8, d +8)
+  float s[kKeyTiles][4];
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j)
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) {
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; j += 2) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, &kt[(j + lane / 16) * 8 + lane % 8]
+                         [st * 16 + (lane / 8 % 2) * 8]);
+      mma_bf16(s[j], qa[st], bk[0], bk[1]);
+      mma_bf16(s[j + 1], qa[st], bk[2], bk[3]);
+    }
+  }
+
+  // online softmax in log2 units (a row's four threads share its max);
+  // the max is taken on the raw scores, scale_log2 >= 0
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && j * 8 + tq * 2 + (e & 1) >= tile_keys) s[j][e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    corr[r] = exp2_ftz(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_ftz(fmaf(s[j][e], scale_log2, -m[e >> 1]));
+      // a missing key weighs 0 (at length 0, -inf * 0 would be NaN)
+      if (MASK && j * 8 + tq * 2 + (e & 1) >= tile_keys) p = 0.f;
+      s[j][e] = p;
+      l[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kDimTiles; ++j) {
+    acc[j][0] *= corr[0];
+    acc[j][1] *= corr[0];
+    acc[j][2] *= corr[1];
+    acc[j][3] *= corr[1];
+  }
+
+  // o += P v, P as head + tail in bf16; S's C fragments are P's A
+  // fragments (keys 16*st .. 16*st + 15 are key tiles 2*st, 2*st + 1)
+#pragma unroll
+  for (int st = 0; st < kBlockK / 16; ++st) {
+    uint32_t ph[4], pt[4];
+    split_pair(s[2 * st][0], s[2 * st][1], ph[0], pt[0]);
+    split_pair(s[2 * st][2], s[2 * st][3], ph[1], pt[1]);
+    split_pair(s[2 * st + 1][0], s[2 * st + 1][1], ph[2], pt[2]);
+    split_pair(s[2 * st + 1][2], s[2 * st + 1][3], ph[3], pt[3]);
+    // lanes 0-7 / 8-15 / 16-23 / 24-31 address matrices (keys +0, dims
+    // +0), (keys +8, dims +0), (keys +0, dims +8), (keys +8, dims +8)
+    const int key = st * 16 + (lane / 8 % 2) * 8 + lane % 8;
+    uint32_t bv[kDimTiles / 2][4];
+#pragma unroll
+    for (int j = 0; j < kDimTiles; j += 2) {
+      ldmatrix_x4_trans(bv[j / 2], &vt[key][(j + lane / 16) * 8]);
+    }
+#pragma unroll
+    for (int j = 0; j < kDimTiles; j += 2) {
+      mma_bf16(acc[j], ph, bv[j / 2][0], bv[j / 2][1]);
+      mma_bf16(acc[j + 1], ph, bv[j / 2][2], bv[j / 2][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kDimTiles; j += 2) {
+      mma_bf16(acc[j], pt, bv[j / 2][0], bv[j / 2][1]);
+      mma_bf16(acc[j + 1], pt, bv[j / 2][2], bv[j / 2][3]);
+    }
+  }
+}
+
+// Shared memory of the bf16 forward: q (128 rows), then two stages of K
+// and of V (64 rows each), rows padded to HD + kPad
 template <int HD>
-__global__ void __launch_bounds__(kBlockQ * 2)
+constexpr int fwd_smem_bytes() {
+  return (kFwdRows + 4 * kBlockK) * (HD + kPad) * sizeof(bf16);
+}
+
+// Grid: ceil(T/128) query tiles x B*H, query tile fastest (head-major);
+// kFwdThreads threads, fwd_smem_bytes<HD>() of dynamic shared memory.
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(kFwdThreads, 2)
 attention_fwd_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           float* __restrict__ lse,
                           const int* __restrict__ lengths, int n_heads,
-                          int seq, Strides sq, Strides sk, Strides sv,
-                          Strides so, float scale, bool vec) {
-  constexpr int kThreads = kBlockQ * 2;  // four warps, 16 rows each
-  constexpr int kSteps = HD / 16;        // k-steps of q k^T
-  constexpr int kDimTiles = HD / 8;      // n-tiles of P v
-  constexpr int kKeyTiles = kBlockK / 8; // n-tiles of q k^T
-  __shared__ __align__(16) bf16 ks[kBlockK][HD + kPad];
-  __shared__ __align__(16) bf16 vs[kBlockK][HD + kPad];
+                          int seq, int n_qtiles, Strides sq, Strides sk,
+                          Strides sv, Strides so, float scale_log2) {
+  constexpr int kLd = HD + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16 (*qs)[kLd] = reinterpret_cast<bf16 (*)[kLd]>(smem);
+  bf16 (*ks)[kLd] = qs + kFwdRows;     // stage s: ks + s * kBlockK
+  bf16 (*vs)[kLd] = ks + 2 * kBlockK;  // stage s: vs + s * kBlockK
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // fragment row (and B column)
+  const int g = lane / 4;   // fragment row
   const int tq = lane % 4;  // fragment column pair
-  const int b = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int row0 = blockIdx.y * kBlockQ + warp * 16 + g;  // and row0 + 8
+  const int bh = blockIdx.x / n_qtiles;
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const int q0 = blockIdx.x % n_qtiles * kFwdRows;
+  const int wrow = q0 + warp * 16;  // this warp's first row
+  const bool live = wrow < seq;     // else it only loads and waits
 
   const int len = lengths != nullptr ? lengths[b] : seq;
   const bool all_masked = len < 1;
+  // keys the rows must visit: the valid ones, or all T when none is valid
   const int n_keys = all_masked ? seq : min(len, seq);
-
-  // q's A fragments, rows row0 / row0 + 8 (zero past T)
-  uint32_t qa[kSteps][4];
-  {
-    const bf16 zero = __float2bfloat16(0.f);
-    const bf16* qp = q + b * sq.b + h * sq.h;
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = row0 + (r & 1) * 8;
-        const int col = s * 16 + tq * 2 + (r >> 1) * 8;
-        const bf16* p = qp + row * sq.t + col * sq.d;
-        qa[s][r] = row < seq ? pack_bf16(p[0], p[sq.d])
-                             : pack_bf16(zero, zero);
-      }
-    }
-  }
-
-  float acc[kDimTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDimTiles; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // rows row0, row0 + 8
-  float l[2] = {0.f, 0.f};              // this thread's part of the sums
+  const int n_tiles = (n_keys + kBlockK - 1) / kBlockK;
+  // length 0: every key scores the constant -1e30, so P is uniform; the
+  // tiles run with scale 0 and the log-sum-exp adds the constant back
+  const float row_scale = all_masked ? 0.f : scale_log2;
 
   const bf16* kbase = k + b * sk.b + h * sk.h;
   const bf16* vbase = v + b * sv.b + h * sv.h;
-  for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
-    for (int idx = threadIdx.x; idx < kBlockK * HD / 8; idx += kThreads) {
-      const int j = idx / (HD / 8);
-      const int d = idx % (HD / 8) * 8;
-      const int key = k0 + j;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (key < seq) {
-        kv = load8(kbase + key * sk.t + d * sk.d, sk.d, vec);
-        vv = load8(vbase + key * sv.t + d * sv.d, sv.d, vec);
-      }
-      *reinterpret_cast<uint4*>(&ks[j][d]) = kv;
-      *reinterpret_cast<uint4*>(&vs[j][d]) = vv;
+  // q and K/V tile 0: group 0
+  stage_async<HD, VEC>(qs, q + b * sq.b + h * sq.h, sq, q0, kFwdRows, seq);
+  stage_async<HD, VEC>(ks, kbase, sk, 0, kBlockK, seq);
+  stage_async<HD, VEC>(vs, vbase, sv, 0, kBlockK, seq);
+  cp_async_commit();
+
+  uint32_t qa[HD / 16][4];
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // rows wrow + g, wrow + g + 8
+  float l[2] = {0.f, 0.f};              // this thread's part of the sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    // tile t + 1 into the other stage (its last reader, tile t - 1, is
+    // done: the barrier that ended the previous step); always commit, so
+    // that waiting for all but one group means tile t has landed
+    if (t + 1 < n_tiles) {
+      const int k1 = (t + 1) * kBlockK;
+      stage_async<HD, VEC>(ks + (stage ^ 1) * kBlockK, kbase, sk, k1,
+                           kBlockK, seq);
+      stage_async<HD, VEC>(vs + (stage ^ 1) * kBlockK, vbase, sv, k1,
+                           kBlockK, seq);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    // S = q k^T for 16 rows x 64 keys
-    float s[kKeyTiles][4];
+    if (live) {
+      if (t == 0) {
+        // q's A fragments of this warp's rows, kept for every tile: lanes
+        // 0-15 address rows +0..15 at d +0, lanes 16-31 at d +8
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        const bf16* kr = &ks[j * 8 + g][st * 16 + tq * 2];
-        mma_bf16(s[j], qa[st], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+        for (int st = 0; st < HD / 16; ++st) {
+          ldmatrix_x4(qa[st], &qs[warp * 16 + lane % 16]
+                                 [st * 16 + (lane / 16) * 8]);
+        }
       }
-    }
-
-    // scale, mask, online softmax (a row's four threads share its max)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tq * 2 + (e & 1);
-        const float x = key >= n_keys ? -INFINITY
-                        : all_masked  ? kMaskValue
-                                      : s[j][e] * scale;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kDimTiles; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    // o += P v, P as head + tail in bf16; S's C fragments are P's A
-    // fragments (keys 16*st .. 16*st + 15 are key tiles 2*st, 2*st + 1)
-#pragma unroll
-    for (int st = 0; st < kBlockK / 16; ++st) {
-      uint32_t ph[4], pt[4];
-      split_pair(s[2 * st][0], s[2 * st][1], ph[0], pt[0]);
-      split_pair(s[2 * st][2], s[2 * st][3], ph[1], pt[1]);
-      split_pair(s[2 * st + 1][0], s[2 * st + 1][1], ph[2], pt[2]);
-      split_pair(s[2 * st + 1][2], s[2 * st + 1][3], ph[3], pt[3]);
-      // lanes 0-7 / 8-15 / 16-23 / 24-31 address matrices (keys +0, dims
-      // +0), (keys +8, dims +0), (keys +0, dims +8), (keys +8, dims +8)
-      const int key = st * 16 + (lane / 8 % 2) * 8 + lane % 8;
-#pragma unroll
-      for (int j = 0; j < kDimTiles; j += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, &vs[key][(j + lane / 16) * 8]);
-        mma_bf16(acc[j], ph, bv[0], bv[1]);
-        mma_bf16(acc[j], pt, bv[0], bv[1]);
-        mma_bf16(acc[j + 1], ph, bv[2], bv[3]);
-        mma_bf16(acc[j + 1], pt, bv[2], bv[3]);
+      const int tile_keys = n_keys - t * kBlockK;
+      const bf16 (*kt)[kLd] = ks + stage * kBlockK;
+      const bf16 (*vt)[kLd] = vs + stage * kBlockK;
+      if (tile_keys < kBlockK) {
+        fwd_tile<HD, true>(kt, vt, qa, acc, m, l, tile_keys, row_scale,
+                           lane);
+      } else {
+        fwd_tile<HD, false>(kt, vt, qa, acc, m, l, tile_keys, row_scale,
+                            lane);
       }
     }
     __syncthreads();
   }
+  if (!live) return;
 
-  bf16* obase = o + b * so.b + h * so.h;
+  // o = acc / sum, staged through this warp's own q rows (no other warp
+  // reads them), then written as 16-byte row chunks
+  bf16 (*os)[kLd] = qs + warp * 16;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float sum = l[r];
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / sum;
-    const int row = row0 + r * 8;
-    if (row >= seq) continue;
-    if (lse != nullptr && tq == 0) {
-      lse[blockIdx.x * seq + row] = m[r] + logf(sum);
+    const int row = wrow + g + r * 8;
+    if (lse != nullptr && tq == 0 && row < seq) {
+      // natural-log units, as the backward reads it
+      lse[bh * seq + row] =
+          (all_masked ? kMaskValue : m[r] * kLn2) + logf(sum);
     }
-    bf16* op = obase + row * so.t;
 #pragma unroll
-    for (int j = 0; j < kDimTiles; ++j) {
-      const int col = j * 8 + tq * 2;
-      op[col * so.d] = __float2bfloat16(acc[j][2 * r] * inv);
-      op[(col + 1) * so.d] = __float2bfloat16(acc[j][2 * r + 1] * inv);
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(&os[g + r * 8][j * 8 + tq * 2]) =
+          __floats2bfloat162_rn(acc[j][2 * r] * inv,
+                                acc[j][2 * r + 1] * inv);
+    }
+  }
+  __syncwarp();
+  bf16* obase = o + b * so.b + h * so.h;
+  for (int idx = lane; idx < 16 * HD / 8; idx += 32) {
+    const int r = idx / (HD / 8);
+    const int d = idx % (HD / 8) * 8;
+    const int row = wrow + r;
+    if (row >= seq) continue;
+    if (VEC) {
+      *reinterpret_cast<uint4*>(obase + row * so.t + d) =
+          *reinterpret_cast<const uint4*>(&os[r][d]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        obase[row * so.t + (d + i) * so.d] = os[r][d + i];
+      }
     }
   }
 }
@@ -974,29 +1147,53 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// rows of 8 bf16 as 16-byte vectors: d contiguous, rows 16-byte aligned
+bool vec_rows(const void* p, Strides s) {
+  return s.d == 1 && aligned16(p) && (s.b | s.t | s.h) % 8 == 0;
+}
+
+template <int HD, bool VEC>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
+                            void* o, float* lse, const int* lengths,
+                            int batch, int seq, int n_heads, Strides sq,
+                            Strides sk, Strides sv, Strides so, float scale,
+                            cudaStream_t stream) {
+  auto kernel = attention_fwd_bf16_kernel<HD, VEC>;
+  constexpr int smem = fwd_smem_bytes<HD>();
+  // above 48 KB (hd 64) only after this opt-in; without it the launch is
+  // refused and cudaGetLastError says so
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qtiles = (seq + kFwdRows - 1) / kFwdRows;
+  kernel<<<n_qtiles * batch * n_heads, kFwdThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, lengths,
+      n_heads, seq, n_qtiles, sq, sk, sv, so, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, float* lse, const int* lengths, int batch,
                    int seq, int n_heads, Strides sq, Strides sk, Strides sv,
                    Strides so, float scale, cudaStream_t stream) {
-  const dim3 grid(batch * n_heads, (seq + kBlockQ - 1) / kBlockQ);
   if (dtype == 0) {
+    const dim3 grid(batch * n_heads, (seq + kBlockQ - 1) / kBlockQ);
     attention_fwd_f32_kernel<HD><<<grid, kBlockQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, lengths,
         n_heads, seq, sq, sk, sv, so, scale);
-  } else if (dtype == 1) {
-    // K/V rows as 16-byte vectors: d contiguous, rows 16-byte aligned
-    const bool vec = sk.d == 1 && sv.d == 1 && aligned16(k) && aligned16(v) &&
-                     (sk.b | sk.t | sk.h | sv.b | sv.t | sv.h) % 8 == 0;
-    attention_fwd_bf16_kernel<HD><<<grid, kBlockQ * 2, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, lengths,
-        n_heads, seq, sq, sk, sv, so, scale, vec);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (vec_rows(q, sq) && vec_rows(k, sk) && vec_rows(v, sv) &&
+      vec_rows(o, so)) {
+    return launch_fwd_bf16<HD, true>(q, k, v, o, lse, lengths, batch, seq,
+                                     n_heads, sq, sk, sv, so, scale, stream);
+  }
+  return launch_fwd_bf16<HD, false>(q, k, v, o, lse, lengths, batch, seq,
+                                    n_heads, sq, sk, sv, so, scale, stream);
 }
 
 template <int HD>
@@ -1025,13 +1222,10 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k,
     const bf16* kb = static_cast<const bf16*>(k);
     const bf16* vb = static_cast<const bf16*>(v);
     const bf16* db = static_cast<const bf16*>(dout);
-    // staged rows as 16-byte vectors: d contiguous, rows 16-byte aligned
+    // staged rows as 16-byte vectors
     bool vec = true;
     const void* ptrs[4] = {q, k, v, dout};
-    for (int i = 0; i < 4; ++i) {
-      vec = vec && s[i].d == 1 && aligned16(ptrs[i]) &&
-            (s[i].b | s[i].t | s[i].h) % 8 == 0;
-    }
+    for (int i = 0; i < 4; ++i) vec = vec && vec_rows(ptrs[i], s[i]);
     attention_bwd_dq_bf16_kernel<HD><<<grid, 128, 0, stream>>>(
         qb, kb, vb, db, lse, lengths, static_cast<bf16*>(dq), delta, n_heads,
         seq, s[0], s[1], s[2], s[3], s[4], scale, vec);

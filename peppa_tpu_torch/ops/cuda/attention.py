@@ -5,9 +5,15 @@ Replaces the TPU kernels of peppa_tpu/ops/pallas/attention.py: `_fwd_kernel`
 via `_attend_fwd` and `_bwd_kernel` via `_attend_bwd`, wrapped there in a
 `jax.custom_vjp` (public `mha_attention`).  The kernels are in
 `peppa_tpu_torch/csrc/attention.cu`; its source note gives their bounds on
-an H100 and their design (forward: flash-style, online softmax in float32,
-any T; backward: P recomputed from the forward's log-sum-exp, two grids
-without atomics; bf16 on the tensor cores, float32 on the CUDA cores).
+an H100 and their design.  The bf16 forward's bound is bytes at short T
+and tensor work at long T; what holds it back on the card is its
+instruction stream (`mma.sync` and the float32 softmax in turn).  It runs
+a head-major grid of 128-row query tiles, so the blocks of one (batch,
+head) share its K/V through L2, streams K/V through two shared-memory
+stages with `cp.async` while `mma.sync` works on the previous tile, and
+keeps its online softmax in float32 (log2 units).  The backward recomputes
+P from the forward's log-sum-exp in two grids without atomics.  float32
+runs on the CUDA cores.
 
 `mha_attention` takes (B, T, H, hd) q/k/v in float32 or bfloat16 and returns
 the same layout in q's dtype.  When autograd needs its gradient it runs as a

@@ -31,13 +31,16 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("t,hd", [(64, 64), (77, 64), (316, 64), (40, 16),
-                                  (50, 32)])
+@pytest.mark.parametrize("t,hd", [(1, 64), (63, 64), (64, 64), (65, 64),
+                                  (77, 64), (127, 64), (128, 64), (129, 64),
+                                  (316, 64), (826, 64), (40, 16), (50, 32)])
 def test_attention_kernel_matches_plain(cuda, dtype, tol, t, hd):
+    """Full and ragged lengths (T and 1 among them) around the 64-key and
+    128-row tile edges; the same inputs give the same bits again."""
     gen = torch.Generator(device=cuda).manual_seed(t)
     q, k, v = (torch.randn(4, t, 12, hd, generator=gen, device=cuda)
                .to(dtype) for _ in range(3))
-    lens = torch.tensor([t, t // 2, 3, 1], device=cuda)
+    lens = torch.tensor([t, max(t // 2, 1), min(3, t), 1], device=cuda)
     for lengths in (None, lens):
         before = mha_attention.launches
         got = mha_attention(q, k, v, lengths)
@@ -45,6 +48,24 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol, t, hd):
         want = mha_attention_plain(q, k, v, lengths)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+        assert torch.equal(got, mha_attention(q, k, v, lengths))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_attention_kernel_length_zero(cuda, dtype, tol):
+    """A row of length 0 scores every key at -1e30: its output averages v
+    over T (ROADMAP C), as the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 150, 12, 64, generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    lens = torch.tensor([150, 0], device=cuda)
+    got = mha_attention(q, k, v, lens)
+    want = mha_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    mean = v[1].float().mean(0, keepdim=True).expand(150, 12, 64)
+    torch.testing.assert_close(got[1].float(), mean, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -52,21 +73,49 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol, t, hd):
                          ids=["f32", "bf16"])
 def test_attention_kernel_reads_strided_views(cuda, dtype, tol):
     """q/k/v as slices of one fused (B, T, 3, H, hd) projection, a
-    head-major (B, H, T, hd) tensor seen as (B, T, H, hd), and k/v whose
-    head dim is not contiguous (the kernel's element-wise load path)."""
+    head-major (B, H, T, hd) tensor seen as (B, T, H, hd), q/k/v whose
+    head dim is not contiguous, and views whose rows are not 16-byte
+    aligned (the last two take the kernel's element-wise load path)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     qkv = torch.randn(2, 99, 3, 12, 64, generator=gen, device=cuda).to(dtype)
     q, k, v = qkv.unbind(2)
     heads_first = torch.randn(2, 12, 99, 64, generator=gen, device=cuda
                               ).to(dtype).transpose(1, 2)
-    dim_strided = torch.randn(2, 2, 99, 64, 12, generator=gen, device=cuda
+    dim_strided = torch.randn(3, 2, 99, 64, 12, generator=gen, device=cuda
                               ).to(dtype).transpose(3, 4)
+    n = 2 * 99 * 12 * 64
+    flat = torch.randn(3 * n + 1, generator=gen, device=cuda).to(dtype)
+    unaligned = [flat[1 + i * n:1 + (i + 1) * n].view(2, 99, 12, 64)
+                 for i in range(3)]
     for args in ((q, k, v), (heads_first, k, v),
-                 (q, dim_strided[0], dim_strided[1])):
+                 (q, dim_strided[0], dim_strided[1]), tuple(dim_strided),
+                 (unaligned[0], k, v), tuple(unaligned)):
         got = mha_attention(*args)
         want = mha_attention_plain(*(x.contiguous() for x in args))
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [65, 316, 826])
+def test_attention_kernel_lse(cuda, dtype, t):
+    """The log-sum-exp the forward writes for the backward: natural-log
+    units, of the masked, scaled float32 scores (length 0 included)."""
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v = (torch.randn(4, t, 12, 64, generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    scale = 64 ** -0.5
+    lens = torch.tensor([t, t // 2, 1, 0], device=cuda)
+    for lengths in (None, lens):
+        _, lse = _launch(q, k, v, lengths, scale, with_lse=True)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale,
+                              k.float())
+        if lengths is not None:
+            mask = torch.arange(t, device=cuda)[None, :] < lengths[:, None]
+            logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+        torch.testing.assert_close(lse, torch.logsumexp(logits, -1),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("b", [8, 13, 32, 1024])
