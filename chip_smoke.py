@@ -6,12 +6,14 @@
 Phases:
   1. the card's name and power limit; build the CUDA kernels from
      `peppa_tpu_torch/csrc/` (seconds printed);
-  2. the bf16 attention forward's registers and spill bytes (`ptxas -v`);
-     each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, with its time, the plain version's and a library
-     yardstick's: the attention forward (serving shapes, T=316 and 826),
-     the attention backward (training shapes), the triplet-loss forward
-     and, beside it, the loss's closed-form backward;
+  2. the registers and spill bytes (`ptxas -v`) of the bf16 attention
+     kernels (forward, backward dq and dkdv); each kernel against its plain
+     PyTorch version on the card, at the main paths' shapes, with its time,
+     the plain version's and a library yardstick's: the attention forward
+     (serving shapes, T=316 and 826), the attention backward (training
+     shapes, T=316 and 826; it and SDPA's backward as the median of 7
+     timings, with their spread), the triplet-loss forward and, beside it,
+     the loss's closed-form backward;
   3. the serving/eval forward of the base configuration (`hparams_base.yaml`:
      wav2vec2-base + R(2+1)D-18, bf16) at full width from seeded random
      weights: `EncoderService` warm-up and mixed-length requests over every
@@ -24,7 +26,9 @@ Phases:
      every attention through the forward and backward kernels; (b) the
      defaults (dropout 0.1, layer-drop 0.05), attention on the JAX
      package's own plain route, and the first micro-steps run again from
-     the same seed to show the run is reproducible;
+     the same seed to show the run is reproducible; each timed as the
+     host-clock mean over micro-steps 2-16 and as the median of their
+     CUDA-event times;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
@@ -90,6 +94,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def median_ms(fn, reps: int = 7):
+    """(median, min, max) of `reps` `time_ms(fn)` readings: the spread of
+    one kernel's time within a run."""
+    import numpy as np
+
+    times = [time_ms(fn) for _ in range(reps)]
+    return float(np.median(times)), min(times), max(times)
+
+
 def bound(n_bytes: float, flops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -97,15 +110,15 @@ def bound(n_bytes: float, flops: float, dtype: str):
 
 
 # ------------------------------------------------------------------ phase 2
-def print_forward_resources() -> None:
-    """Registers and spill bytes of each bf16 attention forward
-    instantiation (head dim, vector path), from `ptxas -v` in this
-    process's build."""
+def print_kernel_resources() -> None:
+    """Registers and spill bytes of each bf16 attention kernel
+    instantiation (forward, backward dq and dkdv; head dim, vector path),
+    from `ptxas -v` in this process's build."""
     from peppa_tpu_torch.ops.cuda import build
 
     log = build.build_log.get("attention")
     if log is None:
-        print("attention_fwd_bf16_kernel: built by an earlier process, no "
+        print("attention bf16 kernels: built by an earlier process, no "
               "ptxas report here")
         return
     name, spills = None, (0, 0)
@@ -118,12 +131,12 @@ def print_forward_resources() -> None:
         if m:
             spills = m.groups()
         m = re.search(r"Used (\d+) registers", line)
-        tag = re.search(r"attention_fwd_bf16_kernelILi(\d+)ELb([01])E",
-                        name or "")
+        tag = re.search(r"(attention_(?:fwd|bwd_dq|bwd_dkdv)_bf16_kernel)"
+                        r"ILi(\d+)ELb([01])E", name or "")
         if m and tag:
-            print(f"attention_fwd_bf16_kernel<hd {tag.group(1)}, vec "
-                  f"{tag.group(2)}>: {m.group(1)} registers, spill stores "
-                  f"{spills[0]} bytes, spill loads {spills[1]} bytes")
+            print(f"{tag.group(1)}<hd {tag.group(2)}, vec {tag.group(3)}>: "
+                  f"{m.group(1)} registers, spill stores {spills[0]} bytes, "
+                  f"spill loads {spills[1]} bytes")
 
 
 def check_attention(report: dict) -> None:
@@ -202,8 +215,8 @@ def check_attention_bwd(report: dict) -> None:
                            for _ in range(4))
             tol = TOL_ATTN_BWD[name]
             for lengths in (None, ragged):
-                _, lse = _launch(q, k, v, lengths, scale, with_lse=True)
-                got = mha_attention_bwd(q, k, v, do, lengths, scale, lse)
+                out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
+                got = mha_attention_bwd(q, k, v, do, lengths, scale, lse, out)
                 want = mha_attention_bwd_plain(q, k, v, do, lengths, scale)
                 torch.cuda.synchronize()
                 tag = "ragged" if lengths is not None else "full"
@@ -218,30 +231,33 @@ def check_attention_bwd(report: dict) -> None:
                             f"attention bwd {name} T={t} {tag} {gname}: {err}")
                     if name == "bfloat16":
                         worst = max(worst, err)
-            # times at the training path's call: no lengths
-            _, lse = _launch(q, k, v, None, scale, with_lse=True)
-            ms = time_ms(lambda: mha_attention_bwd(q, k, v, do, None, scale,
-                                                   lse))
+            # times at the training path's call: no lengths; the kernel and
+            # SDPA's backward as medians of 7 timings (SDPA's spreads)
+            out, lse = _launch(q, k, v, None, scale, with_lse=True)
+            ms, lo, hi = median_ms(lambda: mha_attention_bwd(
+                q, k, v, do, None, scale, lse, out))
             plain_ms = time_ms(lambda: mha_attention_bwd_plain(
                 q, k, v, do, None, scale), iters=5)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                           for x in (q, k, v))
-            out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+            sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
             dot = do.transpose(1, 2)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                out, (qt, kt, vt), dot, retain_graph=True))
+            lib_ms, lib_lo, lib_hi = median_ms(lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), dot, retain_graph=True))
             elem = q.element_size()
             n_bytes = 7 * b * t * h * hd * elem  # q, k, v, dO in; dQ, dK, dV
             flops = 10 * b * h * t * t * hd  # five products of T^2 hd
             bms, by = bound(n_bytes, flops, name)
-            print(f"attention bwd T={t} {name}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
-                  f"{bms:.4f} ms ({by})")
+            print(f"attention bwd T={t} {name}: kernel {ms:.4f} ms "
+                  f"({lo:.4f}-{hi:.4f}), plain {plain_ms:.4f} ms, sdpa "
+                  f"backward {lib_ms:.4f} ms ({lib_lo:.4f}-{lib_hi:.4f}), "
+                  f"bound {bms:.4f} ms ({by})")
             if dtype == torch.bfloat16:
-                rows.append({"T": t, "ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, "bound_ms": bms,
-                             "bound_by": by})
-            del out
+                rows.append({"T": t, "ms": ms, "ms_range": [lo, hi],
+                             "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "library_ms_range": [lib_lo, lib_hi],
+                             "bound_ms": bms, "bound_by": by})
+            del sdpa
     report["attention_bwd"] = {
         **{k: v for k, v in rows[0].items() if k != "T"},
         "max_abs_err": worst, "shapes": rows}
@@ -486,9 +502,16 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     losses = []
+    events = []  # CUDA events around micro-steps 2-16
     t0 = time.perf_counter()
     for i, batch in enumerate(batches):
+        if i > 0:
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
         state, m = train_step(state, batch, seed=0)
+        if i > 0:
+            events[-1][1].record()
         losses.append(m["train_loss"])
         if i == 0:  # the first micro-step is warm-up; time the other 15
             torch.cuda.synchronize()
@@ -501,6 +524,8 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
     t_end = time.perf_counter()
     launches = _counts()
     ms = (t_end - t1) / (TRAIN_MICRO_STEPS - 1) * 1e3
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    ev_ms = float(np.median(step_ms))
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [x.item() for x in losses]
     moved = max((p - start[n]).abs().max().item()
@@ -514,8 +539,10 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
           f"running statistics moved {stats_moved:.3g}; peak memory "
           f"{peak:.2f} GiB")
     print(f"{tag}: {ms:.2f} ms per micro-step (B={TRAIN_B}, "
-          f"{TRAIN_SECONDS} s), {TRAIN_B / ms * 1e3:.2f} train clips/s "
-          f"({card})")
+          f"{TRAIN_SECONDS} s; host clock, mean of micro-steps 2-16), "
+          f"{TRAIN_B / ms * 1e3:.2f} train clips/s; CUDA events: median "
+          f"{ev_ms:.2f} ms ({min(step_ms):.2f}-{max(step_ms):.2f}; the 2 "
+          f"optimizer steps inside) ({card})")
     n_layers = model.audio_encoder.wav2vec2.cfg.num_layers
     n_attn = n_layers * TRAIN_MICRO_STEPS if deterministic else 0
     want = {"attention_fwd": n_attn, "attention_bwd": n_attn,
@@ -529,6 +556,8 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
                              "as the schedule says")
     report["launches"][tag] = launches
     report[tag] = {"ms_per_micro_step": ms,
+                   "event_ms_per_micro_step_median": ev_ms,
+                   "event_ms_range": [min(step_ms), max(step_ms)],
                    "train_clips_per_s": TRAIN_B / ms * 1e3,
                    "peak_memory_gib": peak, "losses": losses}
     if not deterministic:
@@ -655,7 +684,7 @@ def main() -> int:
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
 
     report: dict = {}
-    for phase, fn in ((2, lambda: (print_forward_resources(),
+    for phase, fn in ((2, lambda: (print_kernel_resources(),
                                    check_attention(report),
                                    check_attention_bwd(report),
                                    check_loss(report))),

@@ -34,6 +34,9 @@ class PeppaPig(nn.Module):
 
     def __init__(self, config: Config):
         super().__init__()
+        if config.tpu.quantize_int8:
+            raise NotImplementedError(
+                "tpu.quantize_int8 (W8A8 towers) comes in a later slice")
         self.config = config
         dtype = dtype_of(config.training.precision)
         audio_kw = {}

@@ -11,16 +11,19 @@ instruction stream (`mma.sync` and the float32 softmax in turn).  It runs
 a head-major grid of 128-row query tiles, so the blocks of one (batch,
 head) share its K/V through L2, streams K/V through two shared-memory
 stages with `cp.async` while `mma.sync` works on the previous tile, and
-keeps its online softmax in float32 (log2 units).  The backward recomputes
-P from the forward's log-sum-exp in two grids without atomics.  float32
-runs on the CUDA cores.
+keeps its online softmax in float32 (log2 units).  The bf16 backward is
+built the same way, in two grids without atomics (query tiles for dQ, key
+tiles for dK and dV): it recomputes P in the forward's log2 units from the
+forward's log-sum-exp and takes D = rowsum(dO o O) from the forward's
+output.  float32 runs on the CUDA cores.
 
 `mha_attention` takes (B, T, H, hd) q/k/v in float32 or bfloat16 and returns
 the same layout in q's dtype.  When autograd needs its gradient it runs as a
-`torch.autograd.Function` whose forward also keeps the log-sum-exp and whose
-backward is the backward kernel; otherwise (serving, `inference_mode`) it is
-the forward kernel alone.  On CPU tensors both directions run the plain
-versions; on CUDA tensors they launch the kernels or raise.
+`torch.autograd.Function` whose forward also keeps the log-sum-exp and the
+output, and whose backward is the backward kernel; otherwise (serving,
+`inference_mode`) it is the forward kernel alone.  On CPU tensors both
+directions run the plain versions; on CUDA tensors they launch the kernels
+or raise.
 """
 
 from __future__ import annotations
@@ -100,7 +103,7 @@ def _kernels():
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.peppa_attention_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     return fwd, bwd
@@ -133,7 +136,11 @@ def _stream(x: torch.Tensor) -> int:
 
 def _launch(q, k, v, lengths, scale, with_lse: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The forward kernel: (out, float32 (B, H, T) log-sum-exp or None)."""
+    """The forward kernel: (out, float32 (B, H, T) log-sum-exp or None).
+
+    The log-sum-exp is the backward kernel's input, of the masked scores
+    scaled by `scale`: in natural-log units for float32, in log2 units
+    (of the scores times scale * log2(e)) for bfloat16."""
     _check(q, k, v)
     b, t, h, hd = q.shape
     lengths, lens_ptr = _lengths_arg(lengths, q)
@@ -154,7 +161,7 @@ def _launch(q, k, v, lengths, scale, with_lse: bool = False
     return out, lse
 
 
-def _launch_bwd(q, k, v, do, lse, lengths, scale
+def _launch_bwd(q, k, v, do, lse, out, lengths, scale
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check(q, k, v)
     b, t, h, hd = q.shape
@@ -163,21 +170,26 @@ def _launch_bwd(q, k, v, do, lse, lengths, scale
     if lse is None or lse.shape != (b, h, t) or lse.dtype != torch.float32:
         raise ValueError("the backward kernel needs the forward's float32 "
                          f"(B, H, T) log-sum-exp, got {lse}")
+    if (out is None or out.shape != q.shape or out.dtype != q.dtype
+            or out.device != q.device):
+        raise ValueError("the backward kernel needs the forward's output, "
+                         "in q's shape, dtype and device")
     do = do.to(q.dtype)
     lse = lse.contiguous()
     lengths, lens_ptr = _lengths_arg(lengths, q)
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 28)(
+    strides = (ctypes.c_longlong * 32)(
         *q.stride(), *k.stride(), *v.stride(), *do.stride(), *dq.stride(),
-        *dk.stride(), *dv.stride())
+        *dk.stride(), *dv.stride(), *out.stride())
     with torch.cuda.device(q.device):
         err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            do.data_ptr(), lse.data_ptr(), lens_ptr,
-                            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            delta.data_ptr(), _DTYPES[q.dtype], b, t, h, hd,
-                            strides, float(scale), _stream(q))
+                            do.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                            lens_ptr, dq.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), delta.data_ptr(),
+                            _DTYPES[q.dtype], b, t, h, hd, strides,
+                            float(scale), _stream(q))
     if err != 0:
         raise RuntimeError(
             f"attention backward kernel launch failed: cudaError {err}")
@@ -194,25 +206,27 @@ def _device_of(q: torch.Tensor) -> str:
 def mha_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                       scale: Optional[float] = None,
-                      lse: Optional[torch.Tensor] = None
+                      lse: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in q's dtype.  CPU tensors: the plain version; CUDA
-    tensors: the backward kernel, which needs `lse`, the forward kernel's
-    log-sum-exp of the same q, k, lengths and scale."""
+    """(dq, dk, dv) in q's dtype.  CPU tensors: the plain version, which
+    ignores `lse` and `out`; CUDA tensors: the backward kernel, which needs
+    the forward kernel's log-sum-exp `lse` and output `out` of the same q,
+    k, v, lengths and scale (`_launch(..., with_lse=True)`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _device_of(q) == "cpu":
         return mha_attention_bwd_plain(q, k, v, do, lengths, scale)
-    return _launch_bwd(q, k, v, do, lse, lengths, scale)
+    return _launch_bwd(q, k, v, do, lse, out, lengths, scale)
 
 
 mha_attention_bwd.launches = 0  # kernel launches (CPU calls do not count)
 
 
 class _Attention(torch.autograd.Function):
-    """`mha_attention` under autograd: the forward keeps q, k, v, lengths
-    and (on the card) the log-sum-exp; the backward is the backward kernel
-    (the plain version on the CPU)."""
+    """`mha_attention` under autograd: the forward keeps q, k, v, lengths,
+    its output and (on the card) the log-sum-exp; the backward is the
+    backward kernel (the plain version on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, scale):
@@ -220,14 +234,15 @@ class _Attention(torch.autograd.Function):
             out, lse = mha_attention_plain(q, k, v, lengths, scale), None
         else:
             out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, lengths, lse)
+        ctx.save_for_backward(q, k, v, lengths, lse, out)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lengths, lse = ctx.saved_tensors
-        dq, dk, dv = mha_attention_bwd(q, k, v, do, lengths, ctx.scale, lse)
+        q, k, v, lengths, lse, out = ctx.saved_tensors
+        dq, dk, dv = mha_attention_bwd(q, k, v, do, lengths, ctx.scale, lse,
+                                       out)
         return dq, dk, dv, None, None
 
 

@@ -27,6 +27,23 @@ def test_config_presets_load_alike(path):
             == jax_config.Config.load(path).to_dict())
 
 
+@pytest.mark.parametrize("path", PRESETS, ids=os.path.basename)
+def test_config_presets_leave_int8_off(path):
+    """The port refuses `tpu.quantize_int8` (below), so no committed preset
+    may turn it on."""
+    assert config.Config.load(path).tpu.quantize_int8 is False
+
+
+def test_quantize_int8_is_refused():
+    """The JAX package runs every tower as W8A8 under the flag; the port has
+    no int8 towers yet, so it raises instead of running bf16 silently."""
+    from peppa_tpu_torch.models.dual_encoder import PeppaPig
+
+    cfg = config.Config.from_dict({"tpu": {"quantize_int8": True}})
+    with pytest.raises(NotImplementedError, match="quantize_int8"):
+        PeppaPig(cfg)
+
+
 def test_config_dump_round_trips(tmp_path):
     cfg = config.default_config()
     cfg.audio.num_layers = 3

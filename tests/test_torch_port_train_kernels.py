@@ -85,7 +85,36 @@ def test_attention_bwd_plain_is_the_forward_gradient(rng, lengths):
     got = mha_attention_bwd_plain(q, k, v, do, lens)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    # on the CPU the entry point is the plain version; `lse` and `out`,
+    # which the card's kernel reads, are ignored
+    out = mha_attention_plain(q, k, v, lens)
     assert torch.equal(mha_attention_bwd(q, k, v, do, lens)[0], got[0])
+    assert torch.equal(mha_attention_bwd(q, k, v, do, lens, out=out)[0],
+                       got[0])
+
+
+@pytest.mark.parametrize("lengths", [None, (9, 4, 1, 0)],
+                         ids=["full", "ragged_with_zero"])
+def test_attention_bwd_delta_from_the_output(rng, lengths):
+    """The bf16 backward kernel takes D = rowsum(dO o O) from the forward's
+    output where `_bwd_kernel` takes rowsum(dP o P): the two agree because
+    O = P V.  At length 0 (P uniform) they agree too; the kernel's dS is 0
+    there all the same."""
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(4, 9, 3, 16))
+                                    .astype(np.float64)) for _ in range(4))
+    lens = None if lengths is None else torch.tensor(lengths)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * 16 ** -0.5, k)
+    if lens is not None:
+        mask = torch.arange(9)[None, :] < lens[:, None]
+        logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v)  # the forward, in float64
+    torch.testing.assert_close(out.float(), mha_attention_plain(
+        q.float(), k.float(), v.float(), lens), rtol=1e-5, atol=1e-6)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    want = torch.sum(dp * p, dim=-1)
+    got = torch.einsum("bqhd,bqhd->bhq", do, out)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("b,d", [(10, 64), (13, 100)])
