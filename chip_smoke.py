@@ -7,13 +7,15 @@ Phases:
   1. the card's name and power limit; build the CUDA kernels from
      `peppa_tpu_torch/csrc/` (seconds printed);
   2. the registers and spill bytes (`ptxas -v`) of the bf16 attention
-     kernels (forward, backward dq and dkdv); each kernel against its plain
-     PyTorch version on the card, at the main paths' shapes, with its time,
-     the plain version's and a library yardstick's: the attention forward
-     (serving shapes, T=316 and 826), the attention backward (training
-     shapes, T=316 and 826; it and SDPA's backward as the median of 7
-     timings, with their spread), the triplet-loss forward and, beside it,
-     the loss's closed-form backward;
+     kernels (forward, backward dq and dkdv) and the loss kernels; each
+     kernel against its plain PyTorch version on the card, at the main
+     paths' shapes, with its time, the plain version's and a library
+     yardstick's: the attention forward (serving shapes, T=316 and 826),
+     the attention backward (training shapes, T=316 and 826; it and SDPA's
+     backward as the median of 7 timings, with their spread), the triplet
+     loss alone and with its gradient (B = 8, 13, 32, 1024 and two
+     mixed-activity cases; timed at B = 8 and 32 back-to-back and replayed
+     from a CUDA graph, with `torch.profiler`'s kernel times beside);
   3. the serving/eval forward of the base configuration (`hparams_base.yaml`:
      wav2vec2-base + R(2+1)D-18, bf16) at full width from seeded random
      weights: `EncoderService` warm-up and mixed-length requests over every
@@ -65,6 +67,7 @@ TOL_ATTN = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_pallas_kernels.py
 # 1.6e-2)
 TOL_ATTN_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
+LOSS_GRAD_RTOL = 1e-4  # tests/test_pallas_kernels.py's loss gradients
 EMB_TOL = 1e-4  # towers and embeddings, float32 (PARITY.md)
 TRAIN_B, TRAIN_SECONDS, TRAIN_MICRO_STEPS = 8, 2.3, 16  # hparams_base.yaml
 
@@ -94,6 +97,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 10, replays: int = 20) -> float:
+    """Device time of one `fn()`: `calls` calls captured once in a CUDA
+    graph, replayed `replays` times between two CUDA events, so no host
+    work sits between the kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def median_ms(fn, reps: int = 7):
     """(median, min, max) of `reps` `time_ms(fn)` readings: the spread of
     one kernel's time within a run."""
@@ -110,33 +141,46 @@ def bound(n_bytes: float, flops: float, dtype: str):
 
 
 # ------------------------------------------------------------------ phase 2
+# the kernels whose registers and spills phase 2 prints: (source, pattern of
+# the mangled entry name, label)
+RESOURCE_KERNELS = (
+    ("attention", r"(attention_(?:fwd|bwd_dq|bwd_dkdv)_bf16_kernel)"
+                  r"ILi(\d+)ELb([01])E", "{0}<hd {1}, vec {2}>"),
+    ("loss", r"(loss_cluster_kernel)ILi(\d)ELb([01])E", "{0}<R {1}, grad {2}>"),
+    ("loss", r"(loss_tiles_kernel)ILb([01])E", "{0}<grad {1}>"),
+    ("loss", r"(loss_(?:rows|grad)_kernel)", "{0}"),
+)
+
+
 def print_kernel_resources() -> None:
     """Registers and spill bytes of each bf16 attention kernel
-    instantiation (forward, backward dq and dkdv; head dim, vector path),
-    from `ptxas -v` in this process's build."""
+    instantiation (forward, backward dq and dkdv; head dim, vector path) and
+    of each loss kernel, from `ptxas -v` in this process's build."""
     from peppa_tpu_torch.ops.cuda import build
 
-    log = build.build_log.get("attention")
-    if log is None:
-        print("attention bf16 kernels: built by an earlier process, no "
-              "ptxas report here")
-        return
-    name, spills = None, (0, 0)
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name, spills = m.group(1), (0, 0)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spills = m.groups()
-        m = re.search(r"Used (\d+) registers", line)
-        tag = re.search(r"(attention_(?:fwd|bwd_dq|bwd_dkdv)_bf16_kernel)"
-                        r"ILi(\d+)ELb([01])E", name or "")
-        if m and tag:
-            print(f"{tag.group(1)}<hd {tag.group(2)}, vec {tag.group(3)}>: "
-                  f"{m.group(1)} registers, spill stores {spills[0]} bytes, "
-                  f"spill loads {spills[1]} bytes")
+    for source in ("attention", "loss"):
+        log = build.build_log.get(source)
+        if log is None:
+            print(f"{source} kernels: built by an earlier process, no ptxas "
+                  "report here")
+            continue
+        name, spills = None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name, spills = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = m.groups()
+            m = re.search(r"Used (\d+) registers", line)
+            for src, pattern, label in RESOURCE_KERNELS:
+                tag = re.search(pattern, name or "") if src == source else None
+                if m and tag:
+                    print(f"{label.format(*tag.groups())}: {m.group(1)} "
+                          f"registers, spill stores {spills[0]} bytes, spill "
+                          f"loads {spills[1]} bytes")
+                    break
 
 
 def check_attention(report: dict) -> None:
@@ -263,51 +307,128 @@ def check_attention_bwd(report: dict) -> None:
         "max_abs_err": worst, "shapes": rows}
 
 
-def check_loss(report: dict) -> None:
+def loss_times(b: int, d: int = 512) -> dict:
+    """ms per call of the triplet loss at (b, d), as the eval step (the
+    loss alone, no autograd) and a train micro-step (forward + gradient
+    through autograd) call it: back-to-back (`time_ms`, host issue
+    included) and replayed from a CUDA graph (`graph_ms`, device time)."""
     import torch
 
-    from peppa_tpu_torch.ops.cuda.loss import (fused_triplet_loss,
-                                               fused_triplet_loss_plain)
+    from peppa_tpu_torch.ops.cuda.loss import fused_triplet_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    v = torch.randn(b, d, generator=gen, device="cuda")
+    a = torch.randn(b, d, generator=gen, device="cuda")
+    vg, ag = (x.clone().requires_grad_() for x in (v, a))
+
+    def fwd():
+        fused_triplet_loss(v, a, 0.2)
+
+    def fwd_grad():
+        torch.autograd.grad(fused_triplet_loss(vg, ag, 0.2), (vg, ag))
+
+    return {"B": b, "fwd_ms": time_ms(fwd), "fwd_graph_ms": graph_ms(fwd),
+            "fwd_grad_ms": time_ms(fwd_grad),
+            "fwd_grad_graph_ms": graph_ms(fwd_grad)}
+
+
+def _loss_cases():
+    """(tag, v, a) on the card: random rows at B = 8, 13, 32, 1024 and
+    hinges active in some pairs only (tests/torch_port_loss_data.py) at
+    B = 8 and 100; D = 512."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_port_loss_data import mixed_activity
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
     for b in (8, 13, 32, 1024):
-        d = 512
+        yield (f"B={b} random",
+               *(torch.randn(b, 512, generator=gen, device="cuda")
+                 for _ in range(2)))
+    for b in (8, 100):
+        yield (f"B={b} mixed", *(torch.from_numpy(x).cuda()
+                                 for x in mixed_activity(b, 512, seed=b)))
+
+
+def check_loss(report: dict) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from peppa_tpu_torch.ops.cuda.loss import (
+        _launch, fused_triplet_loss, fused_triplet_loss_and_grad_plain,
+        fused_triplet_loss_plain)
+
+    worst = 0.0
+    for tag, v, a in _loss_cases():
+        b = v.shape[0]
+        before = fused_triplet_loss.launches
+        alone = fused_triplet_loss(v, a, 0.2)
+        got = _launch(v, a, 0.2, grad=True)
+        launches = fused_triplet_loss.launches - before
+        want = fused_triplet_loss_and_grad_plain(v, a, 0.2)
+        torch.cuda.synchronize()
+        errs = [abs(alone.item() - want[0].item())] + [
+            (g - w).abs().max().item() for g, w in zip(got, want)]
+        print(f"loss {tag}: kernel {alone.item():.8f} plain "
+              f"{want[0].item():.8f}; with the gradient: loss, dV, dA "
+              f"max|d| {errs[1]:.3g}, {errs[2]:.3g}, {errs[3]:.3g}; "
+              f"{launches} launches for the two calls")
+        for loss in (alone, got[0]):
+            torch.testing.assert_close(loss, want[0], rtol=LOSS_RTOL,
+                                       atol=LOSS_ATOL)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=LOSS_GRAD_RTOL,
+                                       atol=LOSS_ATOL)
+        if launches != 2:
+            raise AssertionError(f"loss {tag}: {launches} launches for 2 calls")
+        worst = max([worst] + errs)
+
+    rows = []
+    d = 512
+    for b in (8, 32):
+        gen = torch.Generator(device="cuda").manual_seed(b)
         v = torch.randn(b, d, generator=gen, device="cuda")
         a = torch.randn(b, d, generator=gen, device="cuda")
-        got = fused_triplet_loss(v, a, 0.2)
-        want = fused_triplet_loss_plain(v, a, 0.2)
-        torch.cuda.synchronize()
-        err = abs(got.item() - want.item())
-        print(f"loss B={b}: kernel {got.item():.8f} plain {want.item():.8f} "
-              f"max|d|={err:.3g}")
-        if not err <= LOSS_ATOL + LOSS_RTOL * abs(want.item()):
-            raise AssertionError(f"loss B={b}: {got.item()} vs {want.item()}")
-        if b == 32:
-            worst = err
-            ms = time_ms(lambda: fused_triplet_loss(v, a, 0.2))
-            plain_ms = time_ms(lambda: fused_triplet_loss_plain(v, a, 0.2))
-            bms, by = bound(2 * b * d * 4 + 4, 2 * b * b * d, "float32")
-            print(f"loss B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bms:.6f} ms ({by})")
-            report["triplet_loss"] = {
-                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": bms, "bound_by": by}
-    report["triplet_loss"]["max_abs_err"] = worst
-
-    # the loss's closed-form backward (plain PyTorch, as the JAX package's
-    # XLA) behind the kernel, against autograd of the plain forward
-    v = torch.randn(TRAIN_B, 512, generator=gen, device="cuda",
-                    requires_grad=True)
-    a = torch.randn(TRAIN_B, 512, generator=gen, device="cuda",
-                    requires_grad=True)
-    got = torch.autograd.grad(fused_triplet_loss(v, a, 0.2), (v, a))
-    want = torch.autograd.grad(fused_triplet_loss_plain(v, a, 0.2), (v, a))
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
-    print(f"loss backward B={TRAIN_B}: max|d|={err:.3g} against autograd of "
-          "the plain forward")
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+        row = loss_times(b, d)
+        # the kernel alone with the gradient, as the train micro-step launches it
+        row["grad_kernel_graph_ms"] = graph_ms(
+            lambda: _launch(v, a, 0.2, grad=True))
+        row["plain_ms"] = time_ms(lambda: fused_triplet_loss_plain(v, a, 0.2))
+        row["plain_grad_ms"] = time_ms(
+            lambda: fused_triplet_loss_and_grad_plain(v, a, 0.2))
+        row["bound_ms"], row["bound_by"] = bound(2 * b * d * 4 + 4,
+                                                 2 * b * b * d, "float32")
+        row["grad_bound_ms"], row["grad_bound_by"] = bound(
+            4 * b * d * 4 + 4, 6 * b * b * d, "float32")
+        print(f"loss B={b}, D={d}: forward {row['fwd_ms']:.4f} ms "
+              f"back-to-back, {row['fwd_graph_ms']:.4f} ms graph-replayed; "
+              f"forward + gradient (autograd) {row['fwd_grad_ms']:.4f} / "
+              f"{row['fwd_grad_graph_ms']:.4f} ms; the launch with the "
+              f"gradient alone {row['grad_kernel_graph_ms']:.4f} ms "
+              f"graph-replayed; plain {row['plain_ms']:.4f} / "
+              f"{row['plain_grad_ms']:.4f} ms; bound {row['bound_ms']:.6f} / "
+              f"{row['grad_bound_ms']:.6f} ms ({row['bound_by']} / "
+              f"{row['grad_bound_by']})")
+        # cross-check: the profiler's device time of each loss kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                _launch(v, a, 0.2, grad=False)
+                _launch(v, a, 0.2, grad=True)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if "loss_" in e.key and e.count:
+                us = e.device_time_total / e.count
+                print(f"loss B={b} profiler: {e.key[:60]} {us:.2f} us "
+                      f"per launch ({e.count} launches)")
+                row.setdefault("profiler_us", {})[e.key[:60]] = us
+        rows.append(row)
+    main = rows[1]  # B=32, the eval step's call
+    report["triplet_loss"] = {
+        "ms": main["fwd_ms"], "graph_ms": main["fwd_graph_ms"],
+        "plain_ms": main["plain_ms"], "library_ms": None,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "max_abs_err": worst, "shapes": rows}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -369,7 +490,7 @@ def _counts() -> dict:
 
     return {"attention_fwd": mha_attention.launches,
             "attention_bwd": mha_attention_bwd.launches,
-            "triplet_loss_fwd": fused_triplet_loss.launches}
+            "triplet_loss": fused_triplet_loss.launches}
 
 
 def run_slice(report: dict, card: str) -> None:
@@ -412,7 +533,7 @@ def run_slice(report: dict, card: str) -> None:
 
     n_layers = model.audio_encoder.wav2vec2.cfg.num_layers
     want = {"attention_fwd": n_layers * expected_audio, "attention_bwd": 0,
-            "triplet_loss_fwd": 1}
+            "triplet_loss": 1}
     if launches != want:
         raise AssertionError(f"serving launches {launches} != {want}")
     for name, emb in (("audio", a), ("video", v)):
@@ -546,7 +667,7 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
     n_layers = model.audio_encoder.wav2vec2.cfg.num_layers
     n_attn = n_layers * TRAIN_MICRO_STEPS if deterministic else 0
     want = {"attention_fwd": n_attn, "attention_bwd": n_attn,
-            "triplet_loss_fwd": TRAIN_MICRO_STEPS}
+            "triplet_loss": TRAIN_MICRO_STEPS}
     if launches != want:
         raise AssertionError(f"{tag} launches {launches} != {want}")
     if not all(np.isfinite(losses)):
@@ -703,7 +824,7 @@ def main() -> int:
              "attention"),
             ("attention_bwd", "peppa_tpu/ops/pallas/attention.py:137",
              "attention_bwd"),
-            ("triplet_loss_fwd", "peppa_tpu/ops/pallas/loss.py:62",
+            ("triplet_loss", "peppa_tpu/ops/pallas/loss.py:62",
              "triplet_loss")):
         by_path = {path: counts[name] for path, counts in paths.items()}
         source = ("peppa_tpu_torch/csrc/loss.cu" if name.startswith("triplet")

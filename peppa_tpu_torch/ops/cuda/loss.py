@@ -1,22 +1,26 @@
-"""Fused triplet-loss forward: the CUDA kernel and its plain version.
+"""Fused triplet loss and its closed-form gradient: the CUDA kernel and its
+plain version.
 
 Replaces the TPU kernel peppa_tpu/ops/pallas/loss.py (`_loss_kernel` via
-`_fused_loss_fwd_call`, public `fused_triplet_loss`).  The kernel is
-`peppa_tpu_torch/csrc/loss.cu`; its source note gives its bound on an H100
-and its design (row pass, tiled hinge pass, fixed-order reduction; any B).
+`_fused_loss_fwd_call`, public `fused_triplet_loss`) and its `custom_vjp`
+backward `_bwd`.  The kernel is `peppa_tpu_torch/csrc/loss.cu`; its source
+note gives its bound on an H100 and its design (one launch of one
+thread-block cluster up to B = 64, with the gradient in the same launch;
+a row pass, a tile pass and a gradient pass beyond).
 
-On CPU tensors `fused_triplet_loss` runs the plain version; on CUDA tensors
-it launches the kernel or raises.  When autograd needs its gradient it runs
-as a `torch.autograd.Function` whose backward is the closed form of
-peppa_tpu/ops/pallas/loss.py `_bwd` (`triplet_loss_bwd`): plain PyTorch on
-either device, as the JAX package runs it as XLA outside any kernel.
+On CPU tensors `fused_triplet_loss` runs the plain version and, under
+autograd, the plain closed-form backward `triplet_loss_bwd`.  On CUDA
+tensors it launches the kernel or raises: without autograd for the loss
+alone; under autograd for the loss and its gradient (for an output gradient
+of 1) in the same launch, which the backward only scales by the output
+gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,43 +45,7 @@ def fused_triplet_loss_plain(v: torch.Tensor, a: torch.Tensor,
     return torch.sum(c.masked_fill(eye, 0.0)) / (b * b)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point, built and loaded at first use."""
-    from peppa_tpu_torch.ops.cuda.build import library
-
-    fn = library("loss").peppa_triplet_loss_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(v: torch.Tensor, a: torch.Tensor, margin: float) -> torch.Tensor:
-    if v.ndim != 2 or v.shape != a.shape or v.device != a.device:
-        raise ValueError("v and a must be (B, D) on one device")
-    b, d = v.shape
-    v = v.float().contiguous()
-    a = a.float().contiguous()
-    tiles = -(-b // 32)
-    vn = torch.empty_like(v)
-    an = torch.empty_like(a)
-    diag = torch.empty(b, dtype=torch.float32, device=v.device)
-    partial = torch.empty(tiles * tiles, dtype=torch.float32, device=v.device)
-    out = torch.empty((), dtype=torch.float32, device=v.device)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = _kernel()(v.data_ptr(), a.data_ptr(), vn.data_ptr(),
-                        an.data_ptr(), diag.data_ptr(), partial.data_ptr(),
-                        out.data_ptr(), b, d, float(margin), stream)
-    if err != 0:
-        raise RuntimeError(f"triplet-loss kernel launch failed: cudaError {err}")
-    fused_triplet_loss.launches += 1
-    return out
-
-
-def triplet_loss_bwd(v: torch.Tensor, a: torch.Tensor, g: torch.Tensor,
-                     margin: float = 0.2
+def triplet_loss_bwd(v: torch.Tensor, a: torch.Tensor, g, margin: float = 0.2
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dv, da) of the fused loss for the output gradient `g`, in closed
     form.  With N_v, N_a the row-normalised embeddings and M = N_v N_a^T:
@@ -108,23 +76,91 @@ def triplet_loss_bwd(v: torch.Tensor, a: torch.Tensor, g: torch.Tensor,
     return d_v.to(v.dtype), d_a.to(a.dtype)
 
 
+def fused_triplet_loss_and_grad_plain(
+        v: torch.Tensor, a: torch.Tensor, margin: float = 0.2
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(loss, dL/dV, dL/dA) for an output gradient of 1: the plain version
+    of the kernel's launch with the gradient."""
+    d_v, d_a = triplet_loss_bwd(v, a, 1.0, margin)
+    return fused_triplet_loss_plain(v, a, margin), d_v, d_a
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The C entry point and its workspace query, built and loaded at first
+    use."""
+    from peppa_tpu_torch.ops.cuda.build import library
+
+    lib = library("loss")
+    fn = lib.peppa_triplet_loss
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    work = lib.peppa_triplet_loss_workspace
+    work.argtypes = [ctypes.c_int, ctypes.c_int]
+    work.restype = ctypes.c_longlong
+    return fn, functools.lru_cache(maxsize=64)(work)
+
+
+def _launch(v: torch.Tensor, a: torch.Tensor, margin: float, grad: bool
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                       Optional[torch.Tensor]]:
+    """The kernel on (B, D) CUDA tensors of the current device: the loss (a
+    0-d float32 tensor) and, with `grad`, dL/dV and dL/dA for an output
+    gradient of 1 ((B, D) float32), else None for both.  One allocation
+    holds the outputs (and, past B = 64, the kernel's scratch)."""
+    if v.ndim != 2 or v.shape != a.shape or v.device != a.device:
+        raise ValueError("v and a must be (B, D) on one device")
+    b, d = v.shape
+    if b == 0 or d == 0:
+        raise ValueError(f"empty batch or embedding: {tuple(v.shape)}")
+    if v.device.index != torch.cuda.current_device():
+        raise ValueError(f"the loss kernel runs on the current device, "
+                         f"cuda:{torch.cuda.current_device()}; got {v.device}")
+    v = v.float().contiguous()
+    a = a.float().contiguous()
+    fn, work = _kernel()
+    n_out = 2 * b * d + 1 if grad else 1  # [dV | dA |] loss
+    buf = torch.empty(n_out + work(b, int(grad)), dtype=torch.float32,
+                      device=v.device)
+    base = buf.data_ptr()
+    err = fn(v.data_ptr(), a.data_ptr(), base + 4 * (n_out - 1),
+             base if grad else None, base + 4 * b * d if grad else None,
+             base + 4 * n_out, b, d, float(margin),
+             torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"triplet-loss kernel launch failed: cudaError {err}")
+    fused_triplet_loss.launches += 1
+    loss = buf[n_out - 1]
+    if not grad:
+        return loss, None, None
+    return loss, buf[:b * d].view(b, d), buf[b * d:2 * b * d].view(b, d)
+
+
 class _TripletLoss(torch.autograd.Function):
-    """The fused loss under autograd: kernel (or plain) forward, closed-form
-    backward."""
+    """The fused loss under autograd.  CUDA: the kernel's one launch gives
+    the loss and its gradient for an output gradient of 1; the backward
+    scales it.  CPU: the plain forward, then the plain closed form."""
 
     @staticmethod
     def forward(ctx, v, a, margin):
-        ctx.save_for_backward(v, a)
         ctx.margin = margin
+        ctx.dtypes = (v.dtype, a.dtype)
         if v.device.type == "cpu":
+            ctx.save_for_backward(v, a)
             return fused_triplet_loss_plain(v, a, margin)
-        return _launch(v, a, margin)
+        loss, d_v, d_a = _launch(v, a, margin, grad=True)
+        ctx.save_for_backward(d_v, d_a)
+        return loss
 
     @staticmethod
     def backward(ctx, g):
-        v, a = ctx.saved_tensors
-        d_v, d_a = triplet_loss_bwd(v, a, g, ctx.margin)
-        return d_v, d_a, None
+        x, y = ctx.saved_tensors
+        if x.device.type == "cpu":  # x, y are v, a
+            d_v, d_a = triplet_loss_bwd(x, y, g, ctx.margin)
+            return d_v, d_a, None
+        # x, y are the kernel's dV, dA for g = 1
+        return (g * x).to(ctx.dtypes[0]), (g * y).to(ctx.dtypes[1]), None
 
 
 def fused_triplet_loss(v: torch.Tensor, a: torch.Tensor,
@@ -138,7 +174,9 @@ def fused_triplet_loss(v: torch.Tensor, a: torch.Tensor,
         return _TripletLoss.apply(v, a, margin)
     if v.device.type == "cpu":
         return fused_triplet_loss_plain(v, a, margin)
-    return _launch(v, a, margin)
+    return _launch(v, a, margin, grad=False)[0]
 
 
-fused_triplet_loss.launches = 0  # kernel launches (CPU calls do not count)
+# calls that launched the kernel: one launch up to B = 64, two or three
+# beyond (CPU calls do not count)
+fused_triplet_loss.launches = 0

@@ -15,8 +15,11 @@ from peppa_tpu_torch.ops.cuda.attention import (_launch, mha_attention,
                                                 mha_attention_bwd,
                                                 mha_attention_bwd_plain,
                                                 mha_attention_plain)
+from peppa_tpu_torch.ops.cuda import loss as loss_module
 from peppa_tpu_torch.ops.cuda.loss import (fused_triplet_loss,
+                                           fused_triplet_loss_and_grad_plain,
                                            fused_triplet_loss_plain)
+from torch_port_loss_data import mixed_activity
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # backward, as chip_smoke
 
@@ -283,3 +286,70 @@ def test_loss_kernel_gradient_matches_plain(cuda, b):
     want = torch.autograd.grad(fused_triplet_loss_plain(v, a, 0.2), (v, a))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+
+
+def _loss_inputs(cuda, kind, b, d):
+    if kind == "mixed":
+        return (torch.from_numpy(x).to(cuda)
+                for x in mixed_activity(b, d, seed=b + d))
+    gen = torch.Generator(device=cuda).manual_seed(1000 * b + d)
+    return (torch.randn(b, d, generator=gen, device=cuda) for _ in range(2))
+
+
+@pytest.mark.parametrize(
+    "kind,b,d", [(kind, b, d) for kind in ("random", "mixed")
+                 for b in (1, 2, 8, 13, 32, 33, 64, 65, 1024)
+                 for d in (512, 100) if kind == "random" or b >= 8])
+def test_loss_kernel_with_gradient_matches_plain(cuda, kind, b, d):
+    """The launch with the gradient and the one without, against the plain
+    loss and closed form (loss rtol 1e-5, atol 1e-6; gradients rtol 1e-4,
+    atol 1e-6); one launch per call up to B = 64."""
+    v, a = _loss_inputs(cuda, kind, b, d)
+    before = fused_triplet_loss.launches
+    loss, d_v, d_a = loss_module._launch(v, a, 0.2, grad=True)
+    alone = loss_module._launch(v, a, 0.2, grad=False)[0]
+    if b <= 64:
+        assert fused_triplet_loss.launches == before + 2
+    want = fused_triplet_loss_and_grad_plain(v, a, 0.2)
+    torch.testing.assert_close(loss, want[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(alone, loss)
+    for g, w in zip((d_v, d_a), want[1:]):
+        assert g.shape == (b, d) and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [32, 777])
+def test_loss_kernel_gradient_is_deterministic(cuda, b):
+    v, a = _loss_inputs(cuda, "random", b, 100)
+    first = loss_module._launch(v, a, 0.2, grad=True)
+    for _ in range(3):
+        again = loss_module._launch(v, a, 0.2, grad=True)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_loss_kernel_gradient_paths(cuda, monkeypatch):
+    """Eval (no grad, `inference_mode`) launches without the gradient;
+    training launches with it and runs no plain closed form."""
+    grads = []
+    launch = loss_module._launch
+
+    def spy(v, a, margin, grad):
+        grads.append(grad)
+        return launch(v, a, margin, grad)
+
+    def refuse(*args):
+        raise AssertionError("plain closed form on the card")
+
+    v, a = (x.requires_grad_() for x in _loss_inputs(cuda, "mixed", 8, 512))
+    _, d_v, d_a = fused_triplet_loss_and_grad_plain(v.detach(), a.detach())
+    monkeypatch.setattr(loss_module, "_launch", spy)
+    monkeypatch.setattr(loss_module, "triplet_loss_bwd", refuse)
+    with torch.inference_mode():
+        fused_triplet_loss(v, a)
+    with torch.no_grad():
+        fused_triplet_loss(v, a)
+    assert grads == [False, False]
+    got = torch.autograd.grad(3.0 * fused_triplet_loss(v, a), (v, a))
+    assert grads == [False, False, True]
+    torch.testing.assert_close(got[0], 3.0 * d_v, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(got[1], 3.0 * d_a, rtol=1e-4, atol=1e-6)

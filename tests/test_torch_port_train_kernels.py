@@ -21,8 +21,11 @@ from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
                                                 mha_attention_bwd,
                                                 mha_attention_bwd_plain,
                                                 mha_attention_plain)
-from peppa_tpu_torch.ops.cuda.loss import fused_triplet_loss
+from peppa_tpu_torch.ops.cuda import loss as loss_module
+from peppa_tpu_torch.ops.cuda.loss import (fused_triplet_loss,
+                                           fused_triplet_loss_and_grad_plain)
 from peppa_tpu_torch.ops.loss import triplet_loss
+from torch_port_loss_data import mixed_activity
 
 
 def _jax_attention_grads(q, k, v, lengths, dtype):
@@ -137,6 +140,39 @@ def test_loss_grads_match_pallas(rng, b, d):
     torch.testing.assert_close(tv2.grad, tv.grad, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind,b,d", [("mixed", 8, 512), ("mixed", 13, 100),
+                                      ("mixed", 33, 64), ("random", 1, 64),
+                                      ("random", 2, 100)])
+def test_loss_grads_match_pallas_both_ways(rng, kind, b, d):
+    """Hinges active in some pairs and not in others (mixed), and the
+    smallest batches; the autograd path and the plain version of the
+    kernel's gradient launch, against the JAX package's loss and `jax.grad`
+    (loss rtol 1e-5, atol 1e-6; gradients rtol 1e-4, atol 1e-6)."""
+    if kind == "mixed":
+        v, a = mixed_activity(b, d, seed=b + d)
+    else:
+        v = rng.normal(size=(b, d)).astype(np.float32)
+        a = rng.normal(size=(b, d)).astype(np.float32)
+    jv, ja = jnp.asarray(v), jnp.asarray(a)
+    want_loss = float(jax_fused_loss(jv, ja, 0.2, True))
+    want = [np.asarray(g) for g in jax.grad(
+        lambda v, a: jax_fused_loss(v, a, 0.2, True), argnums=(0, 1))(jv, ja)]
+    tv, ta = (torch.from_numpy(x).requires_grad_() for x in (v, a))
+    loss = fused_triplet_loss(tv, ta, 0.2)
+    loss.backward()
+    plain = fused_triplet_loss_and_grad_plain(torch.from_numpy(v),
+                                              torch.from_numpy(a), 0.2)
+    for got_loss, d_v, d_a in ((loss, tv.grad, ta.grad), plain):
+        np.testing.assert_allclose(got_loss.item(), want_loss, rtol=1e-5,
+                                   atol=1e-6)
+        for g, w in zip((d_v, d_a), want):
+            np.testing.assert_allclose(g.detach().numpy(), w, rtol=1e-4,
+                                       atol=1e-6)
+    if b == 1:  # no pair: the loss and its gradient are 0
+        assert loss.item() == 0.0
+        assert not tv.grad.any() and not ta.grad.any()
+
+
 def test_cpu_gradients_do_not_count_as_launches(rng):
     before = (mha_attention.launches, mha_attention_bwd.launches,
               fused_triplet_loss.launches)
@@ -146,6 +182,20 @@ def test_cpu_gradients_do_not_count_as_launches(rng):
     fused_triplet_loss(v, v.flip(0)).backward()
     assert (mha_attention.launches, mha_attention_bwd.launches,
             fused_triplet_loss.launches) == before
+
+
+def test_loss_under_inference_mode_takes_no_autograd_path(monkeypatch):
+    """The eval step's loss is the forward alone (on the card: the kernel
+    without its gradient)."""
+    def refuse(*args):
+        raise AssertionError("autograd path under inference_mode")
+
+    monkeypatch.setattr(loss_module._TripletLoss, "apply", refuse)
+    v = torch.randn(4, 8, requires_grad=True)
+    with torch.inference_mode():
+        assert not fused_triplet_loss(v, v.flip(0)).requires_grad
+    with pytest.raises(AssertionError, match="autograd path"):
+        fused_triplet_loss(v, v.flip(0))
 
 
 def test_serving_never_takes_the_autograd_path(monkeypatch):
