@@ -31,14 +31,30 @@ Phases:
      the same seed to show the run is reproducible; each timed as the
      host-clock mean over micro-steps 2-16 and as the median of their
      CUDA-event times;
+ 4c. `Trainer.fit` of the same configuration (the defaults: dropout,
+     layer-drop) on `SyntheticPigData` (128 training clips, 100 in each of
+     the four validation sets): sanity validation of 2 batches a loader,
+     16 micro-steps (2 optimizer steps), the full validation (500
+     bootstrap subsets), the dual-monitor and last checkpoints (one file,
+     hard-linked); the launches of the attention forward kernel (12 per
+     audio batch encoded) and the loss kernel (one per eval batch and per
+     micro-step), and no plain version on the card; last.ckpt equal to the
+     trained state; `EncoderService.from_checkpoint` embedding a 2.3 s
+     pair as the trained model does; a resume from last.ckpt for 8
+     micro-steps, the loaded state equal to the file; then each kernel
+     against its plain version on the inputs the two fits gave it, the
+     first of each shape (validation batches of 1, 2, 3 and 2.3 s clips
+     at B = 1-8, the micro-step's loss with its gradient); train clips/s
+     (`StepTimer`), validation seconds, checkpoint bytes and seconds (the
+     host copy also again and as copies alone), peak memory;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
   6. one JSON line of per-kernel numbers, the serving and training metrics,
      and the last line `{"ok": true, "device": {...}}`.
 
-Launch counts are set to 0 just before each main path (3, 4a, 4b) and read
-just after it.
+Launch counts are set to 0 just before each main path (3, 4a, 4b, and the
+fit and the resumed fit of 4c) and read just after it.
 
 Any failed check raises, and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -696,6 +712,437 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
     del state, model
 
 
+# ----------------------------------------------------------------- phase 4c
+TRAINER_TRAIN, TRAINER_VAL = 128, 100  # synthetic clips; 100 val pairs
+TRAINER_MICRO_STEPS, TRAINER_SANITY = 16, 2
+RESUME_MICRO_STEPS = 8
+CKPT_EMB_TOL = 1e-6  # served vs in-memory embeddings (0 expected)
+# bootstrap recall vs the numpy loop: float32 distances computed in another
+# order may swap near-equal neighbours; one swap moves the mean by 2e-5
+RECALL_TOL = 1e-3
+PLAIN_VERSIONS = (("attention", "mha_attention_plain"),
+                  ("attention", "mha_attention_bwd_plain"),
+                  ("loss", "fused_triplet_loss_plain"),
+                  ("loss", "triplet_loss_bwd"),
+                  ("loss", "fused_triplet_loss_and_grad_plain"))
+
+
+def _val_batches(data, limit=None) -> int:
+    """Batches of the four validation loaders, from their sizes: loaders 0
+    and 1 hold n_val clips; loaders 2 and 3 batch the line clips by exact
+    duration."""
+    import math
+    from collections import Counter
+
+    b = data.data.val.batch_size
+    fixed = math.ceil(len(data.val_dia) / b)
+    lines = sum(math.ceil(n / b)
+                for n in Counter(data.val_dia3.durations).values())
+    per_loader = [fixed, fixed, lines, lines]
+    return sum(n if limit is None else min(n, limit) for n in per_loader)
+
+
+def _patch(module, name, wrapper):
+    """Wrap module.name (looked up at call time by its callers); returns
+    the undo."""
+    real = getattr(module, name)
+    setattr(module, name, wrapper(real))
+    return lambda: setattr(module, name, real)
+
+
+def _same_state(payload: dict, state_dict: dict) -> int:
+    """Number of tensors of a saved payload equal to a state's; raises at
+    the first that differs or is missing."""
+    import torch
+
+    n = 0
+
+    def walk(a, b, path):
+        nonlocal n
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a.cpu(), b.detach().cpu()):
+                raise AssertionError(f"checkpoint tensor {path} differs")
+            n += 1
+        elif isinstance(a, dict):
+            if a.keys() != b.keys():
+                raise AssertionError(f"checkpoint keys at {path} differ")
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b, strict=True)):
+                walk(x, y, f"{path}/{i}")
+        elif a != b:
+            raise AssertionError(f"checkpoint value {path}: {a} != {b}")
+
+    walk(payload, state_dict, "")
+    return n
+
+
+def _plain_recall(candidates, references, seed, size, n_samples, n) -> float:
+    """Mean recall@n over the bootstrap's subsets (the same draws), by a
+    numpy loop: normalise, distances, stable argsort per row."""
+    import numpy as np
+
+    from peppa_tpu_torch.ops.metrics import bootstrap_indices
+
+    idx = bootstrap_indices(len(candidates), size, n_samples, seed).numpy()
+    hits = 0
+    for ix in idx:
+        x = candidates[ix] / np.linalg.norm(candidates[ix], axis=1,
+                                            keepdims=True)
+        y = references[ix] / np.linalg.norm(references[ix], axis=1,
+                                            keepdims=True)
+        ranked = np.argsort(1.0 - y @ x.T, axis=1, kind="stable")[:, :n]
+        hits += int((ranked == np.arange(size)[:, None]).sum())
+    return hits / (n_samples * size)
+
+
+def _kept_inputs(inputs: dict, kernel: str):
+    """A wrapper for a kernel's caller-side name that keeps a copy of the
+    first CUDA inputs of each shape (dtype, autograd or not, lengths or
+    not) it is given, then calls the kernel's wrapper as before."""
+    import torch
+
+    def wrap(real):
+        def run(*args, **kw):
+            x = args[0]
+            grad = torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+            key = (kernel, tuple(x.shape), str(x.dtype).split(".")[1], grad,
+                   kw.get("lengths") is not None)
+            if x.is_cuda and key not in inputs:
+                inputs[key] = (
+                    [a.detach().clone() if isinstance(a, torch.Tensor) else a
+                     for a in args],
+                    {k: a.detach().clone() if isinstance(a, torch.Tensor)
+                     else a for k, a in kw.items()})
+            return real(*args, **kw)
+        return run
+    return wrap
+
+
+def _hold_path_shapes(report: dict, inputs: dict) -> None:
+    """Each kernel against its plain version on the inputs the trainer's
+    two fits gave it, the first of each shape, at phase 2's tolerances:
+    attention on every validation batch shape (the 2.3 s fixed loaders at
+    B = 8 and the remainder's B = 4, the 1, 2 and 3 s line clips at B up to
+    8), the loss at every eval batch size and the micro-step's (with its
+    gradient)."""
+    import torch
+
+    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
+                                                    mha_attention_plain)
+    from peppa_tpu_torch.ops.cuda.loss import (
+        _launch, fused_triplet_loss, fused_triplet_loss_and_grad_plain,
+        fused_triplet_loss_plain)
+
+    rows = {"attention": [], "triplet_loss": []}
+    with torch.inference_mode():
+        for key in sorted(inputs):
+            kernel, shape, dtype, grad, _ = key
+            args, kw = inputs[key]
+            if kernel == "attention":
+                got = mha_attention(*args, **kw)
+                want = mha_attention_plain(*args, **kw)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = f"{TOL_ATTN[dtype]}"
+                if not err <= TOL_ATTN[dtype]:
+                    raise AssertionError(f"attention {shape} {dtype} in the "
+                                         f"trainer: {err}")
+            else:
+                v, a, margin = args
+                v, a = v.float(), a.float()  # as the kernel reads them
+                if grad:
+                    got = _launch(v, a, margin, grad=True)
+                    want = fused_triplet_loss_and_grad_plain(v, a, margin)
+                else:
+                    got = (fused_triplet_loss(v, a, margin),)
+                    want = (fused_triplet_loss_plain(v, a, margin),)
+                torch.testing.assert_close(got[0], want[0], rtol=LOSS_RTOL,
+                                           atol=LOSS_ATOL)
+                for g, w in zip(got[1:], want[1:]):
+                    torch.testing.assert_close(g, w, rtol=LOSS_GRAD_RTOL,
+                                               atol=LOSS_ATOL)
+                err = max((g - w).abs().max().item()
+                          for g, w in zip(got, want))
+                tol = (f"rtol {LOSS_RTOL} atol {LOSS_ATOL}"
+                       + (f", gradients rtol {LOSS_GRAD_RTOL}" if grad
+                          else ""))
+            print(f"trainer shapes: {kernel} {list(shape)} {dtype}"
+                  f"{' with the gradient' if grad else ''}: max|d|="
+                  f"{err:.3g} against the plain version ({tol})")
+            rows[kernel].append({"shape": list(shape), "dtype": dtype,
+                                 "grad": grad, "max_abs_err": err})
+    for kernel in rows:
+        if not rows[kernel]:
+            raise AssertionError(f"the trainer gave {kernel} no inputs")
+        report[kernel]["trainer_shapes"] = rows[kernel]
+        report[kernel]["max_abs_err"] = max(
+            [report[kernel]["max_abs_err"]]
+            + [r["max_abs_err"] for r in rows[kernel]])
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a state dict's tensors into a host copy of it, in place."""
+    import torch
+
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src.detach(), non_blocking=True)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for x, y in zip(dst, src, strict=True):
+            _copy_into(x, y)
+
+
+def run_trainer(report: dict, card: str) -> None:
+    """`Trainer.fit` of the base configuration at full width and depth,
+    bf16, the default attention route (dropout 0.1, layer-drop 0.05), on
+    `SyntheticPigData`: sanity validation, 16 micro-steps (2 optimizer
+    steps), the full four-loader validation, the dual-monitor and last
+    checkpoints; then the best checkpoint served by
+    `EncoderService.from_checkpoint`, and a resume from last.ckpt for 8
+    more micro-steps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.data.datamodule import SyntheticPigData
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.ops import loss as loss_op
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.serving import EncoderService
+    from peppa_tpu_torch.evaluation import validation
+    from peppa_tpu_torch.training import checkpoint, loop
+
+    cfg = default_config()
+    cfg.training.max_epochs = 1
+    cfg.training.limit_train_batches = TRAINER_MICRO_STEPS
+    cfg.training.num_sanity_val_steps = TRAINER_SANITY
+    data = SyntheticPigData(cfg, n_train=TRAINER_TRAIN, n_val=TRAINER_VAL)
+    data.setup()
+    sanity = _val_batches(data, TRAINER_SANITY)
+    full = _val_batches(data)
+    val_clips = 2 * TRAINER_VAL + 2 * len(data.val_dia3)
+
+    record = {"validation": [], "snapshot": [], "write": [], "plain": 0,
+              "loaded": None, "recall": []}
+
+    def timed_validation(real):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            metrics = real(*args, **kw)
+            record["validation"].append((time.perf_counter() - t0, metrics))
+            return metrics
+        return run
+
+    def timed(key):
+        def wrap(real):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                out = real(*args, **kw)
+                record[key].append(time.perf_counter() - t0)
+                return out
+            return run
+        return wrap
+
+    def held_load(real):
+        def run(path, state=None):
+            state, meta = real(path, state)
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            record["loaded"] = _same_state(saved, state.state_dict())
+            return state, meta
+        return run
+
+    def kept_recall(real):
+        def run(candidates, references, seed=0, **kw):
+            out = real(candidates, references, seed, **kw)
+            record["recall"].append((candidates.cpu().numpy(),
+                                     references.cpu().numpy(), seed, kw,
+                                     out.mean().item()))
+            return out
+        return run
+
+    def refuse_on_card(real):
+        def run(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                record["plain"] += 1
+            return real(*args, **kw)
+        return run
+
+    modules = {"attention": attention, "loss": loss}
+    real_snapshot = checkpoint.snapshot
+    inputs: dict = {}
+    undo = [_patch(wav2vec2, "mha_attention",
+                   _kept_inputs(inputs, "attention")),
+            _patch(loss_op, "fused_triplet_loss",
+                   _kept_inputs(inputs, "triplet_loss")),
+            _patch(loop, "run_validation", timed_validation),
+            _patch(loop, "load_checkpoint", held_load),
+            _patch(checkpoint, "snapshot", timed("snapshot")),
+            _patch(checkpoint, "_publish", timed("write")),
+            _patch(validation, "resampled_recall", kept_recall)]
+    undo += [_patch(modules[m], name, refuse_on_card)
+             for m, name in PLAIN_VERSIONS]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = loop.Trainer(cfg, log_dir=log_dir)
+        state = trainer.fit(data)
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        clips_per_s = trainer.timer.items_per_sec
+        (sanity_s, _), (val_s, metrics) = record["validation"]
+        print(f"trainer: fit in {fit_s:.1f} s (sanity validation {sanity} "
+              f"batches, {TRAINER_MICRO_STEPS} micro-steps, validation "
+              f"{full} batches of {val_clips} clips, checkpoints); "
+              f"launches {launches}; plain versions on the card "
+              f"{record['plain']}; metrics {metrics}")
+        n_layers = state.model.audio_encoder.wav2vec2.cfg.num_layers
+        want = {"attention_fwd": n_layers * (sanity + full),
+                "attention_bwd": 0,
+                "triplet_loss": sanity + full + TRAINER_MICRO_STEPS}
+        if launches != want:
+            raise AssertionError(f"trainer launches {launches} != {want}")
+        if record["plain"]:
+            raise AssertionError(f"{record['plain']} plain-version calls "
+                                 "on the card")
+        keys = {"val_loss", "val_rec_fixed", "valnarr_loss",
+                "valnarr_rec_fixed", "val_triplet", "valnarr_triplet"}
+        if set(metrics) != keys or not all(np.isfinite(list(
+                metrics.values()))):
+            raise AssertionError(f"validation metrics {metrics}")
+        if state.step != TRAINER_MICRO_STEPS:
+            raise AssertionError(f"trainer stopped at step {state.step}")
+        # the full validation's bootstrap against a plain numpy loop over
+        # the same subsets (last two recall calls: val, valnarr)
+        for c, r, seed, kw, got in record["recall"][-2:]:
+            want = _plain_recall(c, r, seed, **kw)
+            print(f"trainer: bootstrap recall@{kw['n']} of {kw['size']} "
+                  f"over {kw['n_samples']} subsets {got:.6f}, plain numpy "
+                  f"{want:.6f}")
+            if not abs(got - want) <= RECALL_TOL:
+                raise AssertionError(f"bootstrap recall {got} vs {want}")
+        # the host's share: making the 400 validation clips and batching
+        # them, with no device work
+        t0 = time.perf_counter()
+        host_batches = sum(1 for loader in data.val_loaders()
+                           for _ in loader)
+        host_s = time.perf_counter() - t0
+        print(f"trainer: the host makes the validation's {host_batches} "
+              f"batches alone in {host_s:.2f} s")
+
+        ckdir = os.path.join(trainer.version_dir, "checkpoints")
+        last = os.path.join(ckdir, "last.ckpt")
+        bests = sorted(f for f in os.listdir(ckdir)
+                       if f.startswith("epoch=0-") and f.endswith(".ckpt"))
+        inodes = {os.stat(os.path.join(ckdir, f)).st_ino
+                  for f in bests + ["last.ckpt"]}
+        if len(bests) != 2 or len(inodes) != 1:
+            raise AssertionError(f"checkpoints {os.listdir(ckdir)}: "
+                                 f"{len(inodes)} inodes")
+        ckpt_bytes = os.path.getsize(last)
+        saved = torch.load(last, map_location="cpu", weights_only=True)
+        n_saved = _same_state(saved, state.state_dict())
+        del saved
+        (snap_s,), (write_s,) = record["snapshot"], record["write"]
+        print(f"trainer: checkpoints {bests + ['last.ckpt']} are one file "
+              f"(one inode) of {ckpt_bytes} bytes, {n_saved} tensors equal "
+              f"to the trained state; host copy {snap_s:.3f} s, "
+              f"serialise and publish {write_s:.3f} s (background writer)")
+        # the host copy in parts: the trainer's snapshot pinned its host
+        # memory afresh; a second snapshot once that one is freed (PyTorch
+        # caches pinned blocks), then the copies alone into its buffers
+        t0 = time.perf_counter()
+        again = real_snapshot(state)
+        again_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _copy_into(again, state.state_dict())
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        del again
+        print(f"trainer: host copy of the state: first {snap_s:.3f} s, "
+              f"again {again_s:.3f} s, the copies alone into pinned "
+              f"buffers {copy_s:.3f} s")
+
+        # the best checkpoint, served: the same embeddings as the trained
+        # model in memory, through the same padded batch
+        rng = np.random.default_rng(5)
+        wave = rng.normal(scale=0.1, size=(int(round(
+            2.3 * cfg.data.audio_sample_rate)),)).astype(np.float32)
+        w, h = cfg.data.target_size
+        clip = rng.integers(0, 256, size=(23, h, w, 3), dtype=np.uint8)
+        served = EncoderService.from_checkpoint(trainer.version_dir)
+        memory = EncoderService(state.model, cfg)
+        diff = max(float(np.abs(served.embed_audio([wave])
+                                - memory.embed_audio([wave])).max()),
+                   float(np.abs(served.embed_video([clip])
+                                - memory.embed_video([clip])).max()))
+        print(f"trainer: from_checkpoint embeds a 2.3 s pair as the "
+              f"trained model does: max|d| = {diff:.3g} (tol {CKPT_EMB_TOL})")
+        if not diff <= CKPT_EMB_TOL:
+            raise AssertionError(f"from_checkpoint embeddings differ by "
+                                 f"{diff}")
+        del served, memory
+
+        # resume from last.ckpt: the loaded state equals the file
+        cfg.training.max_epochs = 2
+        cfg.training.limit_train_batches = RESUME_MICRO_STEPS
+        cfg.training.num_sanity_val_steps = 0
+        cfg.training.limit_val_batches = TRAINER_SANITY
+        del trainer, state
+        _reset_counts()
+        resumed = loop.Trainer(cfg, log_dir=log_dir)
+        state = resumed.fit(data, resume_from=last)
+        resume_launches = _counts()
+        print(f"trainer: resumed from last.ckpt ({record['loaded']} "
+              f"tensors loaded equal to the file), {RESUME_MICRO_STEPS} "
+              f"more micro-steps to step {state.step}; launches "
+              f"{resume_launches}")
+        if record["loaded"] is None or state.step != \
+                TRAINER_MICRO_STEPS + RESUME_MICRO_STEPS:
+            raise AssertionError("resume did not load or did not train")
+        resume_val = _val_batches(data, TRAINER_SANITY)
+        want = {"attention_fwd": n_layers * resume_val, "attention_bwd": 0,
+                "triplet_loss": resume_val + RESUME_MICRO_STEPS}
+        if resume_launches != want or record["plain"]:
+            raise AssertionError(f"resume launches {resume_launches} != "
+                                 f"{want}; plain versions on the card "
+                                 f"{record['plain']}")
+        print(f"trainer: {clips_per_s:.2f} train clips/s (StepTimer: "
+              f"the clips of micro-steps 4-{TRAINER_MICRO_STEPS} over the "
+              f"time from the end of the 3rd); sanity validation "
+              f"{sanity_s:.2f} s; full validation {val_s:.2f} s "
+              f"({val_clips} clips); checkpoint {ckpt_bytes} bytes, host "
+              f"copy {snap_s:.3f} s, write {write_s:.3f} s; peak memory "
+              f"{peak:.2f} GiB ({card})")
+        report["launches"]["trainer"] = launches
+        report["launches"]["trainer_resume"] = resume_launches
+        report["trainer"] = {
+            "train_clips_per_s": clips_per_s, "sanity_val_s": sanity_s,
+            "val_s": val_s, "val_clips": val_clips,
+            "val_host_batches_s": host_s,
+            "checkpoint_bytes": ckpt_bytes, "checkpoint_host_copy_s": snap_s,
+            "checkpoint_host_copy_again_s": again_s,
+            "checkpoint_copy_only_s": copy_s,
+            "checkpoint_write_s": write_s, "peak_memory_gib": peak,
+            "metrics": metrics}
+    finally:
+        for u in undo:
+            u()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    # after the fits' counts were read and every wrapper was put back
+    _hold_path_shapes(report, inputs)
+
+
 # ------------------------------------------------------------------ phase 5
 def card_vs_cpu() -> None:
     import numpy as np
@@ -812,6 +1259,7 @@ def main() -> int:
                       (3, lambda: run_slice(report, card)),
                       ("4a", lambda: run_training(report, card, True)),
                       ("4b", lambda: run_training(report, card, False)),
+                      ("4c", lambda: run_trainer(report, card)),
                       (5, lambda: (card_vs_cpu(), card_vs_cpu_train()))):
         t0 = time.perf_counter()
         fn()
@@ -842,6 +1290,7 @@ def main() -> int:
                       "audio_tower_ms_6s": report["audio_tower_ms_6s"],
                       **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
+                      "trainer": report["trainer"],
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

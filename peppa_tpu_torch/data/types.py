@@ -1,17 +1,39 @@
-"""Batch containers of the port (tensors, no pytree registration).
+"""Data containers of the port (tensors, no pytree registration).
 
 Layouts follow the JAX package (peppa_tpu/data/types.py): video is
-channels-last (B, T, H, W, C), uint8 or float in [0, 1]; audio is (B, S)
-mono float32 or int16.
+channels-last (T, H, W, C) / batched (B, T, H, W, C), uint8 or float in
+[0, 1]; audio is (S,) / batched (B, S) mono float32 or int16.  `Clip` holds
+one item as numpy arrays; the batches hold numpy arrays or tensors, and
+`to(device)` gives tensors on a device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
+
+
+def _move(x, device):
+    if x is None:
+        return None
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return torch.as_tensor(x).to(device)
+
+
+@dataclass
+class Clip:
+    """A video clip with its audio."""
+    video: np.ndarray  # (T, H, W, C) uint8, or float32 in [0, 1]
+    audio: np.ndarray  # (S,) float32
+    video_duration: float
+    audio_duration: float
+    filename: str = ""
+    offset: Optional[float] = None
+    index: Optional[int] = None
 
 
 @dataclass
@@ -27,12 +49,29 @@ class ClipBatch:
 
     def to(self, device: Union[str, torch.device]) -> "ClipBatch":
         """Every field as a tensor on `device` (numpy arrays are converted)."""
-        def move(x):
-            if x is None:
-                return None
-            if isinstance(x, np.ndarray):
-                x = torch.from_numpy(x)
-            return torch.as_tensor(x).to(device)
-
-        return ClipBatch(**{f.name: move(getattr(self, f.name))
+        return ClipBatch(**{f.name: _move(getattr(self, f.name), device)
                             for f in fields(self)})
+
+
+@dataclass
+class Triplet:
+    """(anchor audio, positive video, negative video)."""
+    anchor: Any
+    positive: Any
+    negative: Any
+    video_duration: Optional[float] = None
+    audio_duration: Optional[float] = None
+
+
+@dataclass
+class TripletBatch:
+    """Padded batch of triplets: the forward embeds the anchor with the
+    audio tower and both videos with the video tower, with no lengths."""
+    anchor: Any  # (B, S)
+    positive: Any  # (B, T, H, W, C)
+    negative: Any  # (B, T, H, W, C)
+
+    def to(self, device: Union[str, torch.device]) -> "TripletBatch":
+        """Every field as a tensor on `device` (numpy arrays are converted)."""
+        return TripletBatch(**{f.name: _move(getattr(self, f.name), device)
+                               for f in fields(self)})

@@ -18,11 +18,19 @@ Any missing, unused or mis-shaped leaf raises.  `export_jax_variables(model)`
 is the exact inverse: the port's parameters and running statistics as the
 JAX package's tree of numpy arrays, so that tests compare updated weights
 leaf by leaf.
+
+`pretrained_loader_from_config(config)` is the trainer's hook for the
+pretrained towers (wav2vec2 from `audio.path`, the video tower from
+`data/in/<version>.pth`): where a file is absent it warns and keeps the
+random init, as the JAX package does; where one is present it raises, since
+the converters of those files come in a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+import logging
+import os
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -154,3 +162,26 @@ def export_jax_variables(model: nn.Module,
     if not out["batch_stats"]:
         del out["batch_stats"]
     return out
+
+
+def pretrained_loader_from_config(config) -> Callable[[nn.Module], None]:
+    """The hook the trainer applies to the freshly initialised model."""
+
+    def load(model: nn.Module) -> None:
+        paths = []
+        if config.audio.pretrained:
+            paths.append(("audio.pretrained", config.audio.path))
+        if config.video.pretrained:
+            version = ("static" if config.video.static
+                       else config.video.version)
+            paths.append(("video.pretrained", os.path.join(
+                config.data.data_dir, "in", f"{version}.pth")))
+        for key, path in paths:
+            if os.path.exists(path):
+                raise NotImplementedError(
+                    f"{key}: loading {path} into the port comes in a later "
+                    "slice; set it false to train from the random init")
+            logging.warning("%s=True but %s not found; keeping random init",
+                            key, path)
+
+    return load

@@ -2,8 +2,8 @@
 
 Mirrors peppa_tpu/models/dual_encoder.py: the wav2vec2 audio branch and the
 R(2+1)D video branch, `encode_audio` / `encode_video` with tap points, and
-the forward on a `ClipBatch`.  The static per-frame video ablation and
-`TripletBatch` dispatch come in later slices.
+the forward on a `ClipBatch` or a `TripletBatch`.  The static per-frame
+video ablation comes in a later slice.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from peppa_tpu_torch.config import Config
-from peppa_tpu_torch.data.types import ClipBatch
+from peppa_tpu_torch.data.types import ClipBatch, TripletBatch
 from peppa_tpu_torch.models.layers import Conv, Dense
 from peppa_tpu_torch.models.normalization import resolve_stats
 from peppa_tpu_torch.models.video3d import R3DEncoder
@@ -82,14 +82,26 @@ class PeppaPig(nn.Module):
         return self.audio_encoder(audio, sample_lengths, not train, tap,
                                   mask_padding, generator)
 
-    def forward(self, batch: ClipBatch, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> ClipBatch:
-        """Video pooling is masked by `video_frames`; audio pooling is not
-        (`mask_padding=False`), as in the JAX package.  `train=True` runs
-        BatchNorm on batch statistics (updating the running ones) and the
-        audio tower's dropout and layer-drop, drawn from `generator`."""
+    def forward(self, batch: Union[ClipBatch, TripletBatch],
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Union[ClipBatch, TripletBatch]:
+        """On a `ClipBatch`: video pooling is masked by `video_frames`;
+        audio pooling is not (`mask_padding=False`), as in the JAX package.
+        On a `TripletBatch`: the anchor through the audio tower, the
+        positive and negative through the video tower, with no lengths.
+        `train=True` runs BatchNorm on batch statistics (updating the
+        running ones) and the audio tower's dropout and layer-drop, drawn
+        from `generator`."""
+        if isinstance(batch, TripletBatch):
+            a = self.encode_audio(batch.anchor, train=train,
+                                  generator=generator)
+            p = self.encode_video(batch.positive, train=train)
+            n = self.encode_video(batch.negative, train=train)
+            return TripletBatch(anchor=a, positive=p, negative=n)
         if not isinstance(batch, ClipBatch):
-            raise TypeError(f"expected a ClipBatch, got {type(batch).__name__}")
+            raise TypeError("expected a ClipBatch or a TripletBatch, got "
+                            f"{type(batch).__name__}")
         v = self.encode_video(batch.video, batch.video_frames, train=train)
         a = self.encode_audio(batch.audio, batch.audio_samples, train=train,
                               generator=generator)

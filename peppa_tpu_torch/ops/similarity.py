@@ -1,4 +1,5 @@
-"""Similarity primitives: L2 normalisation and the cosine matrix.
+"""Similarity primitives: L2 normalisation, the cosine matrix and the
+row-wise cosine similarity.
 
 Mirrors peppa_tpu/ops/similarity.py.  The JAX package computes the cosine
 matrix at `Precision.HIGHEST`; the port's counterpart is a full-f32 cuBLAS
@@ -27,3 +28,15 @@ def cosine_matrix(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     u_n = l2_normalize(u, dim=1).float()
     v_n = l2_normalize(v, dim=1).float()
     return u_n @ v_n.T
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """Row-wise cosine similarity in float32: dot / max(|a| |b|, eps), the
+    two norms taken separately (as `F.cosine_similarity` and the JAX
+    package do), so that equal rows give exactly equal similarities."""
+    a, b = a.float(), b.float()
+    dot = torch.sum(a * b, dim=dim)
+    na = torch.linalg.norm(a, dim=dim)
+    nb = torch.linalg.norm(b, dim=dim)
+    return dot / torch.clamp(na * nb, min=eps)

@@ -13,8 +13,10 @@ Usage:
     V = svc.embed_video(list_of_clips)          # (N, 512)
     scores = svc.similarity(V, A)               # cosine matrix
 
-Loading a JAX checkpoint (`from_checkpoint`) comes with the checkpoint
-slice.
+    svc = EncoderService.from_checkpoint("lightning_logs/version_0")
+
+`from_checkpoint` serves the best checkpoint of one of the port's run
+directories; the JAX package's checkpoints are not read yet.
 """
 
 from __future__ import annotations
@@ -49,6 +51,23 @@ class EncoderService:
         self.sample_rate = config.data.audio_sample_rate
         w, h = config.data.target_size
         self._hw = (h, w)
+
+    @classmethod
+    def from_checkpoint(cls, version_dir: str,
+                        device: Optional[Union[str, torch.device]] = None,
+                        quantize_int8: Optional[bool] = None,
+                        **kw) -> "EncoderService":
+        """The service of a run directory's best checkpoint (by its
+        monitor score), with the config of its hparams.yaml, on `device`
+        (None: the card; raises without CUDA).  `quantize_int8=True`
+        raises: W8A8 comes in a later slice."""
+        from peppa_tpu_torch.training.checkpoint import load_best_model
+
+        if quantize_int8:
+            raise NotImplementedError(
+                "tpu.quantize_int8 (W8A8 towers) comes in a later slice")
+        model, config, _ = load_best_model(version_dir, device=device)
+        return cls(model, config, device=device, **kw)
 
     # ------------------------------------------------------------- shapes
     def _audio_bucket(self, n_samples: int) -> int:

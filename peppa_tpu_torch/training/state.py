@@ -9,12 +9,18 @@ micro-step within the group, as optax's Welford update), and every k-th
 micro-step hands the mean to BertAdam and clears the buffer.  Parameters and
 moments move only then.  Unlike the JAX state the port's is updated in
 place: the model's parameters and running statistics are the state.
+
+`state_dict()` / `load_state_dict()` carry the whole of it: the model's
+parameters and buffers (BatchNorm running statistics included), BertAdam's
+moments and its per-group optimizer-step counter, the micro-step counter
+and the accumulation buffer, so that a checkpoint taken inside an
+accumulation group resumes bit for bit.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 from torch import nn
@@ -68,3 +74,23 @@ class TrainState:
                     p.grad = None
                     self.acc_grads[name].zero_()
         self.step += 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"step", "model", "optimizer", "acc_grads"}: the tensors are the
+        live ones (copy them before the next step changes them)."""
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "acc_grads": dict(self.acc_grads)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore `state_dict()`'s content (from any device) in place."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        unknown = sorted(state["acc_grads"].keys() - self.params.keys())
+        if unknown:
+            raise KeyError(f"accumulation buffer of unknown parameters: "
+                           f"{unknown}")
+        self.acc_grads = {
+            name: acc.to(device=self.params[name].device, copy=True)
+            for name, acc in state["acc_grads"].items()}
+        self.step = int(state["step"])

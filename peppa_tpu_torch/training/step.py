@@ -4,9 +4,10 @@ Mirrors the single-device branch of peppa_tpu/training/step.py:
 `train_step` is `make_train_step`'s step (both towers in training mode, the
 fused `triplet_loss` with the config's margin, its gradient, one micro-step
 of the optimizer); `eval_step` is `make_eval_step`'s (both towers, then
-`triplet_loss` with the default margin).  On the card the loss is the fused
-loss kernel and, where the config routes attention through them, the
-attention forward and backward kernels.
+`triplet_loss` with the default margin) on a `ClipBatch`, and
+`make_predict_step`'s (the embeddings alone) on a `TripletBatch`.  On the
+card the loss is the fused loss kernel and, where the config routes
+attention through them, the attention forward and backward kernels.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from peppa_tpu_torch.data.types import ClipBatch
+from peppa_tpu_torch.data.types import ClipBatch, TripletBatch
 from peppa_tpu_torch.ops.loss import triplet_loss
 from peppa_tpu_torch.training.state import TrainState
 from peppa_tpu_torch.utils.device import resolve_device
@@ -57,14 +58,16 @@ def train_step(state: TrainState, batch: ClipBatch, seed: int,
     return state, {"train_loss": loss.detach()}
 
 
-def eval_step(model, batch: ClipBatch,
-              device: Optional[Union[str, torch.device]] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(V, A, loss) for one batch, under `torch.inference_mode()`, on
-    `device` (None: the card; raises without CUDA).  The batch is moved
-    there; the model must already be there."""
+def eval_step(model, batch: Union[ClipBatch, TripletBatch],
+              device: Optional[Union[str, torch.device]] = None):
+    """(V, A, loss) for a `ClipBatch`; for a `TripletBatch`, the
+    `TripletBatch` of its embeddings, with no loss.  Under
+    `torch.inference_mode()`, on `device` (None: the card; raises without
+    CUDA).  The batch is moved there; the model must already be there."""
     model_dev = _model_on(model, device)
     with torch.inference_mode():
         out = model(batch.to(model_dev), train=False)
+        if isinstance(out, TripletBatch):
+            return out
         loss = triplet_loss(out.video, out.audio)
     return out.video, out.audio, loss

@@ -353,3 +353,66 @@ def test_loss_kernel_gradient_paths(cuda, monkeypatch):
     assert grads == [False, False, True]
     torch.testing.assert_close(got[0], 3.0 * d_v, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(got[1], 3.0 * d_a, rtol=1e-4, atol=1e-6)
+
+
+def test_metrics_on_the_card_equal_the_cpu(cuda):
+    """The bootstrap and the triplet rounds score the same subsets on the
+    card as on the CPU: the same recalls and accuracies."""
+    from peppa_tpu_torch.evaluation.triplet import score_triplets
+    from peppa_tpu_torch.ops.metrics import bootstrap_indices, \
+        recall_from_indices, resampled_recall
+
+    gen = torch.Generator().manual_seed(0)
+    c = torch.randn(150, 512, generator=gen)
+    r = c + 1.5 * torch.randn(150, 512, generator=gen)
+    idx = bootstrap_indices(150, 100, 500, seed=0)
+    want = recall_from_indices(c, r, idx, n=10)
+    got = recall_from_indices(c.to(cuda), r.to(cuda), idx.to(cuda), n=10)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(resampled_recall(c.to(cuda), r.to(cuda), seed=0,
+                                        n=10, n_samples=500).cpu(), want)
+    duration = torch.randint(1, 4, (150,), generator=gen).float().numpy()
+    on_cpu = score_triplets(c, r, duration, n_samples=500, seed=0)
+    on_card = score_triplets(c.to(cuda), r.to(cuda), duration,
+                             n_samples=500, seed=0)
+    assert (on_card["accuracy"] == on_cpu["accuracy"]).all()
+    assert (on_card["duration"] == on_cpu["duration"]).all()
+
+
+def test_validation_on_the_card_runs_the_kernels_only(cuda, monkeypatch):
+    """run_validation's eval steps launch the attention forward kernel (one
+    per layer per batch) and the loss kernel (one per batch), and no plain
+    version runs on a CUDA tensor."""
+    from peppa_tpu_torch.config import Config
+    from peppa_tpu_torch.data.datamodule import SyntheticPigData
+    from peppa_tpu_torch.evaluation.validation import run_validation
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import attention as attention_module
+
+    for module, name in ((attention_module, "mha_attention_plain"),
+                         (attention_module, "mha_attention_bwd_plain"),
+                         (loss_module, "fused_triplet_loss_plain"),
+                         (loss_module, "triplet_loss_bwd"),
+                         (loss_module, "fused_triplet_loss_and_grad_plain")):
+        def refuse(*args, _name=name, _real=getattr(module, name), **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"{_name} ran on the card")
+            return _real(*args, **kw)
+        monkeypatch.setattr(module, name, refuse)
+    cfg = Config.from_dict({
+        "data": {"target_size": [64, 48], "audio_sample_rate": 16000,
+                 "val": {"batch_size": 8}},
+        "audio": {"num_layers": 2}})
+    data = SyntheticPigData(cfg, n_train=8, n_val=20)
+    data.setup()
+    model = init_model(cfg, seed=0)
+    batches = sum(len(list(loader)) for loader in data.val_loaders())
+    mha_attention.launches = fused_triplet_loss.launches = 0
+    metrics = run_validation(model, data.val_loaders(), n_samples=50)
+    assert set(metrics) == {"val_loss", "val_rec_fixed", "valnarr_loss",
+                            "valnarr_rec_fixed", "val_triplet",
+                            "valnarr_triplet"}
+    assert all(math.isfinite(v) for v in metrics.values())
+    assert mha_attention.launches == 2 * batches
+    assert fused_triplet_loss.launches == batches
