@@ -47,14 +47,29 @@ Phases:
      at B = 1-8, the micro-step's loss with its gradient); train clips/s
      (`StepTimer`), validation seconds, checkpoint bytes and seconds (the
      host copy also again and as copies alone), peak memory;
+ 4d. the same fit over the data pipeline: an episode tree written to
+     $TMPDIR at full size (180x100, 44.1 kHz; dialog train episodes 1-16,
+     dialog val 197-209, narration val 1-13, two 12 s clips each), then
+     `Trainer.fit` on `PigData` with the defaults (jittered windows, the
+     native loader): the item caches and the pack built once (seconds and
+     bytes), sanity validation, 16 micro-steps, the full validation (130
+     clips in each fixed loader, 130 lines in each line loader), the
+     checkpoints; `TripletScorer` on the dialog val lines with the trained
+     model; the native batches served and the side-stream copies made
+     during the fit, the launches of kernels 1 and 3, no plain version on
+     the card; each kernel against its plain version at the path's shapes;
+     then the native loader alone over one epoch's plan, the copy rate of
+     one 2.3 s batch (pinned on a side stream, and pageable through
+     `ClipBatch.to`), and the step alone on the fit's 16 batches;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
   6. one JSON line of per-kernel numbers, the serving and training metrics,
      and the last line `{"ok": true, "device": {...}}`.
 
-Launch counts are set to 0 just before each main path (3, 4a, 4b, and the
-fit and the resumed fit of 4c) and read just after it.
+Launch counts are set to 0 just before each main path (3, 4a, 4b, the
+fit and the resumed fit of 4c, the fit and the scorer of 4d) and read just
+after it.
 
 Any failed check raises, and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -821,13 +836,16 @@ def _kept_inputs(inputs: dict, kernel: str):
     return wrap
 
 
-def _hold_path_shapes(report: dict, inputs: dict) -> None:
-    """Each kernel against its plain version on the inputs the trainer's
-    two fits gave it, the first of each shape, at phase 2's tolerances:
-    attention on every validation batch shape (the 2.3 s fixed loaders at
-    B = 8 and the remainder's B = 4, the 1, 2 and 3 s line clips at B up to
-    8), the loss at every eval batch size and the micro-step's (with its
-    gradient)."""
+def _hold_path_shapes(report: dict, inputs: dict,
+                      tag: str = "trainer_shapes") -> None:
+    """Each kernel against its plain version on the inputs a path gave it,
+    the first of each shape, at phase 2's tolerances: for the trainer's two
+    fits (`trainer_shapes`), attention on every validation batch shape (the
+    2.3 s fixed loaders at B = 8 and the remainder's B = 4, the 1, 2 and 3 s
+    line clips at B up to 8), the loss at every eval batch size and the
+    micro-step's (with its gradient); for the pipeline's fit and scorer
+    (`pipeline_shapes`), the same over the episode tree's clips and
+    lines."""
     import torch
 
     from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
@@ -847,8 +865,8 @@ def _hold_path_shapes(report: dict, inputs: dict) -> None:
                 err = (got.float() - want.float()).abs().max().item()
                 tol = f"{TOL_ATTN[dtype]}"
                 if not err <= TOL_ATTN[dtype]:
-                    raise AssertionError(f"attention {shape} {dtype} in the "
-                                         f"trainer: {err}")
+                    raise AssertionError(f"attention {shape} {dtype} in "
+                                         f"{tag}: {err}")
             else:
                 v, a, margin = args
                 v, a = v.float(), a.float()  # as the kernel reads them
@@ -868,18 +886,57 @@ def _hold_path_shapes(report: dict, inputs: dict) -> None:
                 tol = (f"rtol {LOSS_RTOL} atol {LOSS_ATOL}"
                        + (f", gradients rtol {LOSS_GRAD_RTOL}" if grad
                           else ""))
-            print(f"trainer shapes: {kernel} {list(shape)} {dtype}"
+            print(f"{tag.replace('_', ' ')}: {kernel} {list(shape)} {dtype}"
                   f"{' with the gradient' if grad else ''}: max|d|="
                   f"{err:.3g} against the plain version ({tol})")
             rows[kernel].append({"shape": list(shape), "dtype": dtype,
                                  "grad": grad, "max_abs_err": err})
     for kernel in rows:
         if not rows[kernel]:
-            raise AssertionError(f"the trainer gave {kernel} no inputs")
-        report[kernel]["trainer_shapes"] = rows[kernel]
+            raise AssertionError(f"{tag}: {kernel} was given no inputs")
+        report[kernel][tag] = rows[kernel]
         report[kernel]["max_abs_err"] = max(
             [report[kernel]["max_abs_err"]]
             + [r["max_abs_err"] for r in rows[kernel]])
+
+
+def _timed(record: dict, key: str):
+    """A wrapper that appends each call's host seconds to record[key]."""
+    def wrap(real):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            record[key].append(time.perf_counter() - t0)
+            return out
+        return run
+    return wrap
+
+
+def _timed_validation(record: dict):
+    """A wrapper of `run_validation` that appends (seconds, metrics) to
+    record["validation"]."""
+    def wrap(real):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            metrics = real(*args, **kw)
+            record["validation"].append((time.perf_counter() - t0, metrics))
+            return metrics
+        return run
+    return wrap
+
+
+def _count_on_card(record: dict):
+    """A wrapper of a plain version that counts its calls on CUDA tensors
+    in record["plain"]."""
+    import torch
+
+    def wrap(real):
+        def run(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                record["plain"] += 1
+            return real(*args, **kw)
+        return run
+    return wrap
 
 
 def _copy_into(dst, src) -> None:
@@ -932,24 +989,6 @@ def run_trainer(report: dict, card: str) -> None:
     record = {"validation": [], "snapshot": [], "write": [], "plain": 0,
               "loaded": None, "recall": []}
 
-    def timed_validation(real):
-        def run(*args, **kw):
-            t0 = time.perf_counter()
-            metrics = real(*args, **kw)
-            record["validation"].append((time.perf_counter() - t0, metrics))
-            return metrics
-        return run
-
-    def timed(key):
-        def wrap(real):
-            def run(*args, **kw):
-                t0 = time.perf_counter()
-                out = real(*args, **kw)
-                record[key].append(time.perf_counter() - t0)
-                return out
-            return run
-        return wrap
-
     def held_load(real):
         def run(path, state=None):
             state, meta = real(path, state)
@@ -967,13 +1006,6 @@ def run_trainer(report: dict, card: str) -> None:
             return out
         return run
 
-    def refuse_on_card(real):
-        def run(*args, **kw):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                record["plain"] += 1
-            return real(*args, **kw)
-        return run
-
     modules = {"attention": attention, "loss": loss}
     real_snapshot = checkpoint.snapshot
     inputs: dict = {}
@@ -981,12 +1013,12 @@ def run_trainer(report: dict, card: str) -> None:
                    _kept_inputs(inputs, "attention")),
             _patch(loss_op, "fused_triplet_loss",
                    _kept_inputs(inputs, "triplet_loss")),
-            _patch(loop, "run_validation", timed_validation),
+            _patch(loop, "run_validation", _timed_validation(record)),
             _patch(loop, "load_checkpoint", held_load),
-            _patch(checkpoint, "snapshot", timed("snapshot")),
-            _patch(checkpoint, "_publish", timed("write")),
+            _patch(checkpoint, "snapshot", _timed(record, "snapshot")),
+            _patch(checkpoint, "_publish", _timed(record, "write")),
             _patch(validation, "resampled_recall", kept_recall)]
-    undo += [_patch(modules[m], name, refuse_on_card)
+    undo += [_patch(modules[m], name, _count_on_card(record))
              for m, name in PLAIN_VERSIONS]
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
@@ -1143,6 +1175,295 @@ def run_trainer(report: dict, card: str) -> None:
     _hold_path_shapes(report, inputs)
 
 
+# ----------------------------------------------------------------- phase 4d
+# the episode tree: dialog train 1-16, dialog val 197-209, narration val
+# 1-13, two 12 s clips each (SPLIT_SPEC's episode numbers)
+PIPELINE_EPISODES = {"dialog": tuple(range(1, 17)) + tuple(range(197, 210)),
+                     "narration": tuple(range(1, 14))}
+PIPELINE_CLIPS, PIPELINE_CLIP_S = 2, 12.0
+PIPELINE_FIELDS = ("video", "audio", "video_duration", "audio_duration",
+                   "video_frames", "audio_samples")
+
+
+def _dir_bytes(root: str, pattern: str) -> int:
+    import glob
+
+    return sum(os.path.getsize(p)
+               for p in glob.glob(os.path.join(root, pattern)))
+
+
+def _batch_bytes(batch) -> int:
+    return sum(getattr(batch, f).numel() * getattr(batch, f).element_size()
+               for f in PIPELINE_FIELDS)
+
+
+def _copy_rates(batch) -> tuple:
+    """GB/s of one batch to the card: its pinned tensors on a side stream
+    (CUDA events around the copies), and the same batch as pageable numpy
+    arrays through `ClipBatch.to` (host clock to a synchronise); each the
+    median of 10 after 2."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.data.types import ClipBatch
+
+    n_bytes = _batch_bytes(batch)
+    side = torch.cuda.Stream()
+    pinned, pageable = [], []
+    host = ClipBatch(**{f: getattr(batch, f).numpy().copy()
+                        for f in PIPELINE_FIELDS})
+    for _ in range(12):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            moved = [getattr(batch, f).to("cuda", non_blocking=True)
+                     for f in PIPELINE_FIELDS]
+            end.record(side)
+        end.synchronize()
+        pinned.append(start.elapsed_time(end) / 1e3)
+        del moved
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.to("cuda")
+        torch.cuda.synchronize()
+        pageable.append(time.perf_counter() - t0)
+    return (n_bytes, n_bytes / float(np.median(pinned[2:])) / 1e9,
+            n_bytes / float(np.median(pageable[2:])) / 1e9)
+
+
+def run_pipeline(report: dict, card: str) -> None:
+    """`Trainer.fit` of the base configuration (the defaults: jittered 2.3 s
+    windows, dropout, layer-drop, B=8, k=8, the native loader) over
+    `PigData` on an episode tree written at full size: the item caches and
+    the pack built once, sanity validation, 16 micro-steps, the full
+    validation, the checkpoints; then `TripletScorer` on the dialog val
+    lines with the trained model.  Around it: the native loader alone over
+    one epoch's plan, the copy rate of one 2.3 s batch pinned and pageable,
+    and the step alone on the fit's 16 batches."""
+    import itertools
+    import random
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.data import cache as cache_module
+    from peppa_tpu_torch.data.datamodule import PigData
+    from peppa_tpu_torch.data.synthetic import make_synthetic_episode_tree
+    from peppa_tpu_torch.evaluation.triplet import TripletScorer
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.native.loader import (NativeBatchLoader, NativePack,
+                                               bucket_plan)
+    from peppa_tpu_torch.ops import loss as loss_op
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.training import loop
+    from peppa_tpu_torch.training.step import train_step
+    from peppa_tpu_torch.utils.prefetch import Prefetcher
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    undo = []
+    try:
+        cfg = default_config()
+        d = cfg.data
+        d.data_dir = os.path.join(root, "data")
+        w, h = d.target_size
+        t0 = time.perf_counter()
+        for fragment, episodes in PIPELINE_EPISODES.items():
+            make_synthetic_episode_tree(
+                d.data_dir, target_size=(w, h), fragment_type=fragment,
+                episodes=episodes, clips_per_episode=PIPELINE_CLIPS,
+                clip_seconds=PIPELINE_CLIP_S,
+                sample_rate=d.audio_sample_rate, seed=0, correlated=True)
+        tree_s = time.perf_counter() - t0
+        tree_bytes = _dir_bytes(d.data_dir, "out/*/*/*/*.npz")
+        n_files = PIPELINE_CLIPS * sum(map(len, PIPELINE_EPISODES.values()))
+        print(f"pipeline: episode tree of {n_files} clips of "
+              f"{PIPELINE_CLIP_S} s ({w}x{h}, {d.audio_sample_rate} Hz) "
+              f"written in {tree_s:.1f} s, {tree_bytes} bytes")
+
+        cfg.training.max_epochs = 1
+        cfg.training.limit_train_batches = TRAINER_MICRO_STEPS
+        cfg.training.num_sanity_val_steps = TRAINER_SANITY
+        data = PigData(cfg)
+        record = {"setup": [], "pack": [], "validation": [], "plain": 0}
+        inputs: dict = {}
+        modules = {"attention": attention, "loss": loss}
+        undo += [_patch(data, "setup", _timed(record, "setup")),
+                 _patch(cache_module, "pack_from_dataset",
+                        _timed(record, "pack")),
+                 _patch(loop, "run_validation", _timed_validation(record)),
+                 _patch(wav2vec2, "mha_attention",
+                        _kept_inputs(inputs, "attention")),
+                 _patch(loss_op, "fused_triplet_loss",
+                        _kept_inputs(inputs, "triplet_loss"))]
+        undo += [_patch(modules[m], name, _count_on_card(record))
+                 for m, name in PLAIN_VERSIONS]
+        random.seed(0)  # the jitter of the train windows (global random)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        NativeBatchLoader.served = 0
+        Prefetcher.side_stream_copies = 0
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = loop.Trainer(cfg, log_dir=os.path.join(root, "logs"))
+        state = trainer.fit(data)
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+        served, copies = NativeBatchLoader.served, \
+            Prefetcher.side_stream_copies
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        clips_per_s = trainer.timer.items_per_sec
+        (sanity_s, _), (val_s, metrics) = record["validation"]
+        cache_s, pack_s = record["setup"][0], record["pack"][0]
+        cache_bytes = _dir_bytes(os.path.join(d.data_dir, "out"),
+                                 "items-*/*.npz")
+        pack_path = os.path.join(data.train.cache_dir, "items.pack")
+        pack_bytes = os.path.getsize(pack_path)
+        n_items = [len(x) for x in (data.train, data.val_dia, data.val_narr,
+                                    data.val_dia3, data.val_narr3)]
+        print(f"pipeline: item caches of {sum(n_items)} clips (train "
+              f"{n_items[0]}, val fixed {n_items[1]} + {n_items[2]}, val "
+              f"lines {n_items[3]} + {n_items[4]}) built in {cache_s:.1f} s, "
+              f"{cache_bytes} bytes; the pack of the {n_items[0]} train "
+              f"clips in {pack_s:.1f} s, {pack_bytes} bytes")
+
+        # the validation's batches made on the host alone, no device work
+        t0 = time.perf_counter()
+        per_loader = [sum(1 for _ in loader) for loader in data.val_loaders()]
+        host_s = time.perf_counter() - t0
+        sanity = sum(min(n, TRAINER_SANITY) for n in per_loader)
+        full = sum(per_loader)
+        print(f"pipeline: fit in {fit_s:.1f} s (sanity validation {sanity} "
+              f"batches, {TRAINER_MICRO_STEPS} micro-steps, validation "
+              f"{full} batches {per_loader}, checkpoints); native batches "
+              f"served {served}; side-stream copies {copies}; launches "
+              f"{launches}; plain versions on the card {record['plain']}; "
+              f"metrics {metrics}")
+        n_layers = state.model.audio_encoder.wav2vec2.cfg.num_layers
+        want = {"attention_fwd": n_layers * (sanity + full),
+                "attention_bwd": 0,
+                "triplet_loss": sanity + full + TRAINER_MICRO_STEPS}
+        if launches != want:
+            raise AssertionError(f"pipeline launches {launches} != {want}")
+        if served != TRAINER_MICRO_STEPS \
+                or copies != sanity + full + TRAINER_MICRO_STEPS:
+            raise AssertionError(f"native batches {served}, side-stream "
+                                 f"copies {copies}")
+        if record["plain"]:
+            raise AssertionError(f"{record['plain']} plain-version calls "
+                                 "on the card")
+        if min(n_items[1:3]) < 100:
+            raise AssertionError(f"fixed val sets {n_items[1:3]} < 100 clips")
+        keys = {"val_loss", "val_rec_fixed", "valnarr_loss",
+                "valnarr_rec_fixed", "val_triplet", "valnarr_triplet"}
+        if set(metrics) != keys or not all(np.isfinite(list(
+                metrics.values()))):
+            raise AssertionError(f"validation metrics {metrics}")
+        if state.step != TRAINER_MICRO_STEPS:
+            raise AssertionError(f"pipeline fit stopped at step {state.step}")
+
+        # TripletScorer on the dialog val lines (the cache of val_dia3)
+        _reset_counts()
+        t0 = time.perf_counter()
+        scorer = TripletScorer("dialog", ["val"], target_size=(w, h),
+                               audio_sample_rate=d.audio_sample_rate,
+                               data_dir=d.data_dir)
+        tri = scorer.evaluate(state.model, batch_size=d.val.batch_size,
+                              n_samples=100, seed=0)
+        scorer_s = time.perf_counter() - t0
+        scorer_launches = _counts()
+        acc = tri["accuracy"]
+        print(f"pipeline: TripletScorer over {len(scorer.dataset)} dialog "
+              f"val lines in {scorer_s:.2f} s: accuracy {acc.mean():.4f} "
+              f"(100 rounds); launches {scorer_launches}")
+        want = {"attention_fwd": n_layers * per_loader[2],
+                "attention_bwd": 0, "triplet_loss": per_loader[2]}
+        if scorer_launches != want or record["plain"]:
+            raise AssertionError(f"scorer launches {scorer_launches} != "
+                                 f"{want}; plain {record['plain']}")
+        if acc.shape != (100,) or not ((acc >= 0) & (acc <= 1)).all() \
+                or tuple(scorer._video.shape) != (len(scorer.dataset), 512):
+            raise AssertionError(f"scorer output {acc.shape}")
+        for u in undo:
+            u()
+        undo = []
+
+        # the native loader alone over epoch 0's plan: no device work
+        pack = NativePack(pack_path)
+        plan = bucket_plan(
+            pack.durations(), buckets=tuple(cfg.tpu.bucket_durations),
+            batch_size=d.train.batch_size, target_hw=d.target_size,
+            sample_rate=d.audio_sample_rate, shuffle=d.train.shuffle,
+            seed=cfg.training.seed)
+        t0 = time.perf_counter()
+        loaded = 0
+        for b in NativeBatchLoader(pack, plan, n_threads=max(d.num_workers, 1),
+                                   depth=2 * cfg.tpu.prefetch):
+            loaded += _batch_bytes(b)
+        loader_s = time.perf_counter() - t0
+        print(f"pipeline: native loader alone, epoch 0's {len(plan)} "
+              f"batches of {d.train.batch_size} ({loaded} bytes, pinned) in "
+              f"{loader_s:.3f} s: {len(plan) / loader_s:.1f} batches/s, "
+              f"{loaded / loader_s / 1e9:.2f} GB/s")
+        entry = next(p for p in plan if p[1][0] == round(TRAIN_SECONDS * 10))
+        one = next(iter(NativeBatchLoader(pack, [entry])))
+        n_bytes, pinned_gbs, pageable_gbs = _copy_rates(one)
+        print(f"pipeline: one {TRAIN_SECONDS} s B={len(entry[0])} batch "
+              f"({n_bytes} bytes) to the card: pinned on a side stream "
+              f"{pinned_gbs:.2f} GB/s, pageable through ClipBatch.to "
+              f"{pageable_gbs:.2f} GB/s")
+
+        # the step alone on the fit's 16 batches (already on the card)
+        batches = [b.to("cuda") for b in itertools.islice(
+            data.train_batches(0), TRAINER_MICRO_STEPS)]
+        mix = Counter(f"{b.video.shape[1] / 10:.1f} s"
+                      for b in batches)
+        for i, b in enumerate(batches):
+            state, m = train_step(state, b, seed=1)
+            if i == 2:
+                m["train_loss"].item()
+                t1 = time.perf_counter()
+        m["train_loss"].item()
+        alone = (TRAINER_MICRO_STEPS - 3) * d.train.batch_size / (
+            time.perf_counter() - t1)
+        step_alone_23 = report["train_default"]["train_clips_per_s"]
+        print(f"pipeline: {clips_per_s:.2f} train clips/s (StepTimer, "
+              f"micro-steps 4-{TRAINER_MICRO_STEPS}); the step alone on the "
+              f"same batches {alone:.2f} (buckets {dict(mix)}); phase 4b's "
+              f"step alone on 2.3 s clips {step_alone_23:.2f}; sanity "
+              f"validation {sanity_s:.2f} s; full validation {val_s:.2f} s "
+              f"({sum(n_items[1:])} clips; phase 4c "
+              f"{report['trainer']['val_s']:.2f} s), its batches on the host "
+              f"alone {host_s:.2f} s; peak memory {peak:.2f} GiB ({card})")
+        report["launches"]["pipeline"] = launches
+        report["launches"]["pipeline_scorer"] = scorer_launches
+        report["pipeline"] = {
+            "tree_s": tree_s, "tree_bytes": tree_bytes, "clips": n_items,
+            "cache_s": cache_s, "cache_bytes": cache_bytes,
+            "pack_s": pack_s, "pack_bytes": pack_bytes,
+            "train_clips_per_s": clips_per_s,
+            "step_alone_clips_per_s": alone, "buckets": dict(mix),
+            "sanity_val_s": sanity_s, "val_s": val_s,
+            "val_host_batches_s": host_s, "native_batches": served,
+            "side_stream_copies": copies,
+            "loader_batches_per_s": len(plan) / loader_s,
+            "loader_gb_per_s": loaded / loader_s / 1e9,
+            "copy_bytes": n_bytes, "copy_pinned_gb_per_s": pinned_gbs,
+            "copy_pageable_gb_per_s": pageable_gbs,
+            "scorer_s": scorer_s, "scorer_accuracy": float(acc.mean()),
+            "peak_memory_gib": peak, "metrics": metrics}
+        del state, trainer, batches
+    finally:
+        for u in undo:
+            u()
+        shutil.rmtree(root, ignore_errors=True)
+    _hold_path_shapes(report, inputs, "pipeline_shapes")
+
+
 # ------------------------------------------------------------------ phase 5
 def card_vs_cpu() -> None:
     import numpy as np
@@ -1260,6 +1581,7 @@ def main() -> int:
                       ("4a", lambda: run_training(report, card, True)),
                       ("4b", lambda: run_training(report, card, False)),
                       ("4c", lambda: run_trainer(report, card)),
+                      ("4d", lambda: run_pipeline(report, card)),
                       (5, lambda: (card_vs_cpu(), card_vs_cpu_train()))):
         t0 = time.perf_counter()
         fn()
@@ -1291,6 +1613,7 @@ def main() -> int:
                       **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
                       "trainer": report["trainer"],
+                      "pipeline": report["pipeline"],
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

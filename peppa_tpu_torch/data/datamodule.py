@@ -1,56 +1,150 @@
 """The data module: train batches and the four validation loaders.
 
-Mirrors the single-process branch of peppa_tpu/data/datamodule.py.  The
+Mirrors the single-process path of peppa_tpu/data/datamodule.py.  The
 contract is `prepare_data()`, `setup()`, `train_batches(epoch)` and
 `val_loaders()`:
 
-- train: shuffled by `training.seed + epoch` and bucketed to
-  `tpu.bucket_durations`, so an epoch's stream is a function of the seed and
-  the epoch (resume fast-forwards it);
-- validation, four loaders: dialog and narration clips of fixed duration
-  (`val_rec_fixed`, `valnarr_rec_fixed`), and dialog and narration
-  subtitle lines batched by exact audio duration (`val_triplet`,
-  `valnarr_triplet`).
+- prepare: the normalisation statistics of the training data to
+  `{data_dir}/out/stats.npz` when `data.prepare`; episode extraction
+  (`data.extract`) is not ported and raises;
+- train (dialog, the train episodes, jittered as the config says): an item
+  cache (`PeppaPigDataset`), or decoded on the fly with `data.iterable`;
+  an epoch's stream is a function of `training.seed + epoch`, shuffled and
+  bucketed to `tpu.bucket_durations`, so a resume fast-forwards it.  With
+  `tpu.native_loader` (the default) the cache is packed once into
+  `items.pack` (`items_i16.pack` with `tpu.pack_audio_int16`) beside it and
+  served by the C++ loader (`native/`), which assembles the batches in
+  worker threads, into pinned memory on the card; a failed build of the
+  loader raises.  Otherwise `bucketed_batches` reads the cache in Python;
+- validation, four loaders over item caches: dialog and narration clips of
+  fixed duration (`val_rec_fixed`, `valnarr_rec_fixed`), and dialog and
+  narration subtitle lines batched by exact audio duration
+  (`val_triplet`, `valnarr_triplet`).
 
-`SyntheticPigData` fills the datasets with synthetic clips; `PigData` over
-the extracted episodes waits for the port's dataset classes and raises.
+`SyntheticPigData` fills the datasets with synthetic clips instead.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+import logging
+import os
+from typing import Iterator, List, Optional
 
 import numpy as np
 
 from peppa_tpu_torch.config import Config
-from peppa_tpu_torch.data.dataset import (batches, bucketed_batches,
-                                          grouped_batches)
+from peppa_tpu_torch.data.decode import FPS
+from peppa_tpu_torch.data.dataset import (PeppaPigDataset,
+                                          PeppaPigIterableDataset, batches,
+                                          bucket_for, bucketed_batches,
+                                          collate, grouped_batches)
+from peppa_tpu_torch.data.stats import compute_stats, save_stats
 from peppa_tpu_torch.data.synthetic import SyntheticClipDataset
 from peppa_tpu_torch.data.types import ClipBatch
 
 
 class PigData:
-    """Data module over the extracted episode tree."""
+    """Data module over the extracted episode tree of `data.data_dir`."""
 
     def __init__(self, config: Config):
         self.config = config
         self.data = config.data
 
     def prepare_data(self) -> None:
-        pass
+        d = self.data
+        if d.extract:
+            raise NotImplementedError(
+                "episode extraction (data.extract) is not ported yet "
+                "(ROADMAP A.5); extract with the JAX package or set "
+                "data.extract: false")
+        if d.prepare:
+            logging.info("Collecting stats on training data.")
+            train = PeppaPigIterableDataset(
+                target_size=d.target_size,
+                audio_sample_rate=d.audio_sample_rate,
+                split=["train"], fragment_type="dialog",
+                duration=d.train.duration, jitter=d.train.jitter,
+                jitter_sd=d.train.jitter_sd, data_dir=d.data_dir)
+            save_stats(os.path.join(d.data_dir, "out", "stats.npz"),
+                       compute_stats(train))
+            logging.info("Saved stats")
 
     def setup(self) -> None:
-        raise NotImplementedError(
-            "training on the extracted episodes needs the port's dataset "
-            "classes, which come in a later slice; use SyntheticPigData")
+        d = self.data
+        common = dict(target_size=d.target_size,
+                      audio_sample_rate=d.audio_sample_rate,
+                      data_dir=d.data_dir)
+        train = dict(split=["train"], fragment_type="dialog",
+                     duration=d.train.duration, jitter=d.train.jitter,
+                     jitter_sd=d.train.jitter_sd, **common)
+        self.train = (PeppaPigIterableDataset(**train) if d.iterable else
+                      PeppaPigDataset(force_cache=d.train.force_cache,
+                                      **train))
+        fixed = dict(force_cache=d.val.force_cache, split=["val"],
+                     duration=d.val.duration, jitter=d.val.jitter,
+                     jitter_sd=d.val.jitter_sd, **common)
+        self.val_dia = PeppaPigDataset(fragment_type="dialog", **fixed)
+        self.val_narr = PeppaPigDataset(fragment_type="narration", **fixed)
+        lines = dict(force_cache=d.val.force_cache, split=["val"],
+                     duration=None, jitter=False, **common)
+        self.val_dia3 = PeppaPigDataset(fragment_type="dialog", **lines)
+        self.val_narr3 = PeppaPigDataset(fragment_type="narration", **lines)
 
     def train_batches(self, epoch: int = 0) -> Iterator[ClipBatch]:
         d = self.data
-        yield from bucketed_batches(
-            self.train, batch_size=d.train.batch_size,
-            buckets=tuple(self.config.tpu.bucket_durations),
+        buckets = tuple(self.config.tpu.bucket_durations)
+        native = self._native_train_batches(epoch)
+        if native is not None:
+            yield from native
+        elif hasattr(self.train, "__len__"):
+            yield from bucketed_batches(
+                self.train, batch_size=d.train.batch_size, buckets=buckets,
+                sample_rate=d.audio_sample_rate, shuffle=d.train.shuffle,
+                seed=self.config.training.seed + epoch)
+        else:  # decoded on the fly: bucket the stream as it comes
+            pending = {b: [] for b in buckets}
+            for item in self.train:
+                b = bucket_for(max(item.video_duration, item.audio_duration),
+                               buckets)
+                pending[b].append(item)
+                if len(pending[b]) == d.train.batch_size:
+                    yield collate(
+                        pending[b], video_frames=int(round(b * FPS)),
+                        audio_samples=int(round(b * d.audio_sample_rate)))
+                    pending[b] = []
+
+    def _native_train_batches(self, epoch: int
+                              ) -> Optional[Iterator[ClipBatch]]:
+        """The pack, made beside the item cache on first use, served by the
+        native loader; None when `tpu.native_loader` is off or the train set
+        has no item cache (`data.iterable`)."""
+        cfg = self.config
+        d = self.data
+        cache_dir = getattr(self.train, "cache_dir", None)
+        if not cfg.tpu.native_loader or cache_dir is None:
+            return None
+        from peppa_tpu_torch.data.cache import pack_from_dataset
+        from peppa_tpu_torch.native.loader import (NativeBatchLoader,
+                                                   NativePack, bucket_plan)
+
+        pack_path = os.path.join(cache_dir, "items_i16.pack"
+                                 if cfg.tpu.pack_audio_int16
+                                 else "items.pack")
+        if not os.path.exists(pack_path):
+            logging.info("Materializing packed cache %s", pack_path)
+            pack_from_dataset(self.train, pack_path,
+                              audio_int16=cfg.tpu.pack_audio_int16)
+        pack = NativePack(pack_path)
+        plan = bucket_plan(
+            pack.durations(), buckets=tuple(cfg.tpu.bucket_durations),
+            batch_size=d.train.batch_size, target_hw=d.target_size,
             sample_rate=d.audio_sample_rate, shuffle=d.train.shuffle,
-            seed=self.config.training.seed + epoch)
+            seed=cfg.training.seed + epoch)
+        logging.info("Native loader: %d batches from %s", len(plan),
+                     pack_path)
+        return iter(NativeBatchLoader(pack, plan,
+                                      n_threads=max(d.num_workers, 1),
+                                      depth=cfg.tpu.prefetch * 2))
 
     def val_loaders(self) -> List[Iterator[ClipBatch]]:
         """The four validation loaders, in the monitors' order."""
@@ -62,6 +156,17 @@ class PigData:
             grouped_batches(self.val_dia3, key, batch_size=d.val.batch_size),
             grouped_batches(self.val_narr3, key, batch_size=d.val.batch_size),
         ]
+
+    def test_loader(self, fragment_type: str = "narration"
+                    ) -> Iterator[ClipBatch]:
+        """Batches of the test split's clips of `fragment_type`."""
+        d = self.data
+        ds = PeppaPigDataset(
+            force_cache=d.test.force_cache, split=["test"],
+            fragment_type=fragment_type, duration=d.test.duration,
+            jitter=d.test.jitter, target_size=d.target_size,
+            audio_sample_rate=d.audio_sample_rate, data_dir=d.data_dir)
+        return batches(ds, batch_size=d.test.batch_size)
 
 
 class SyntheticPigData(PigData):
@@ -76,6 +181,9 @@ class SyntheticPigData(PigData):
         self.n_val = n_val
         self.seed = seed
         self.n_classes = n_classes
+
+    def prepare_data(self) -> None:
+        pass
 
     def setup(self) -> None:
         d = self.data

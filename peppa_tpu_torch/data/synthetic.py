@@ -2,21 +2,21 @@
 
 Mirrors peppa_tpu/data/synthetic.py: random audio/video clip pairs shaped
 like the real pipeline's output, drawn from the same numpy generator with
-the same formulas, so an item is bit-identical to the JAX package's.
-Writing `.npz` episode trees (`make_synthetic_episode_tree`) waits for the
-port's decoder.
+the same formulas, so an item is bit-identical to the JAX package's;
+`make_synthetic_episode_tree` writes an extracted episode tree of `.npz`
+clips and subtitle `.json`s whose arrays equal the JAX package's.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
 
+from peppa_tpu_torch.data.decode import DEFAULT_SAMPLE_RATE, FPS, save_clip_npz
 from peppa_tpu_torch.data.types import Clip
 
-DEFAULT_SAMPLE_RATE = 44100
-FPS = 10  # frames per second of the extracted episodes
 N_CLASSES = 8  # shared latent classes driving both modalities
 
 
@@ -100,3 +100,57 @@ class SyntheticClipDataset:
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
+
+
+def make_synthetic_episode_tree(data_dir: str,
+                                target_size: Tuple[int, int] = (64, 48),
+                                fragment_type: str = "dialog",
+                                episodes: Sequence[int] = (1, 197),
+                                clips_per_episode: int = 2,
+                                clip_seconds: float = 7.0,
+                                sample_rate: int = 8000,
+                                seed: int = 0,
+                                correlated: bool = False) -> None:
+    """Write {data_dir}/out/{W}x{H}/{fragment}/{ep}/{i}.npz clips, each with
+    a .json of subtitle lines every 2-3 s: the layout extraction produces,
+    which `PeppaPigIterableDataset` globs.  `correlated=True` draws each
+    clip file from the `correlated_pair` family (one latent class a file,
+    shared by both modalities) instead of noise, so a model trained on one
+    tree evaluates above chance on another."""
+    rng = np.random.default_rng(seed)
+    w, h = target_size
+    fps = FPS
+    for ep in episodes:
+        base = os.path.join(data_dir, "out", f"{w}x{h}", fragment_type,
+                            str(ep))
+        os.makedirs(base, exist_ok=True)
+        for i in range(clips_per_episode):
+            t = int(clip_seconds * fps)
+            s = int(clip_seconds * sample_rate)
+            if correlated:
+                k = int(rng.integers(0, N_CLASSES))
+                vf, audio = correlated_pair(rng, k, t, s, w, h, sample_rate)
+                video = (np.clip(vf, 0, 1) * 255.0).astype(np.uint8)
+            else:
+                video = rng.integers(0, 255, size=(t, h, w, 3),
+                                     dtype=np.uint8)
+                audio = (0.1 * rng.standard_normal(s)).astype(np.float32)
+            subs = []
+            t0 = 0.0
+            j = 0
+            while t0 < clip_seconds - 1.0:
+                t1 = min(t0 + 2.0 + (j % 2), clip_seconds)
+                subs.append({"begin": _ts(t0), "end": _ts(t1),
+                             "text": f"line {j}"})
+                t0 = t1
+                j += 1
+            save_clip_npz(os.path.join(base, f"{i}.npz"), video, audio,
+                          fps=fps, sample_rate=sample_rate,
+                          meta={"subtitles": subs})
+
+
+def _ts(seconds: float) -> str:
+    """`HH:MM:SS.fff`."""
+    m, s = divmod(seconds, 60.0)
+    hh, mm = divmod(int(m), 60)
+    return f"{hh:02d}:{mm:02d}:{s:06.3f}"

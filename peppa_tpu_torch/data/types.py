@@ -37,6 +37,28 @@ class Clip:
 
 
 @dataclass
+class RawSegment:
+    """An undecoded segment of a source clip: spans in seconds from the
+    start of the file; the audio and video spans may differ (jittered
+    segmentation)."""
+    path: str
+    video_start: float
+    video_end: float
+    audio_start: float
+    audio_end: float
+    offset: Optional[float] = None
+    meta: Any = None
+
+    @property
+    def duration(self) -> float:
+        return self.video_end - self.video_start
+
+    @property
+    def audio_duration(self) -> float:
+        return self.audio_end - self.audio_start
+
+
+@dataclass
 class ClipBatch:
     """Batch of padded clips; `video_frames`/`audio_samples` are the valid
     extents inside the padded buffers, in frames / samples."""
@@ -75,3 +97,13 @@ class TripletBatch:
         """Every field as a tensor on `device` (numpy arrays are converted)."""
         return TripletBatch(**{f.name: _move(getattr(self, f.name), device)
                                for f in fields(self)})
+
+
+@dataclass
+class Stats:
+    """Mean and standard deviation of a data sample: per video channel,
+    and over all audio samples."""
+    video_mean: np.ndarray  # (3,)
+    video_std: np.ndarray  # (3,)
+    audio_mean: float
+    audio_std: float

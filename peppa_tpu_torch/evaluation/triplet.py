@@ -9,15 +9,15 @@ The rounds are drawn on the host with Python's `random.Random(seed)`, by the
 JAX package's own code, so a seed gives the same (target, distractor) index
 sets in both packages.  Every round is then scored at once on the
 embeddings' device: one gather of (rounds, pairs, D) and the cosine.
-`TripletScorer`, which encodes a subtitle-line dataset, waits for the
-port's dataset classes.
+`TripletScorer` encodes the subtitle-line clips of an episode split and
+scores them so.
 """
 
 from __future__ import annotations
 
 import random
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,3 +105,66 @@ def comparative_score_triplets(video_set: Sequence, audio_set: Sequence,
             diff = triplet_accuracy(a[p], v[p], v[n], dim=2, discrete=False)
         success.append(diff.cpu().numpy().reshape(-1))
     return {"success": success, "duration": durs}
+
+
+class TripletScorer:
+    """Encode the subtitle-line clips (`duration=None`) of an episode split
+    and score duration-matched triplets over them.
+
+    Mirrors peppa_tpu/evaluation/triplet.py's `TripletScorer`.  The clips
+    come from the item cache (`PeppaPigDataset`, built on first use) in
+    batches of one exact audio duration (`grouped_batches`)."""
+
+    def __init__(self, fragment_type: str, split: Sequence[str] = ("val",),
+                 target_size: Tuple[int, int] = (180, 100),
+                 audio_sample_rate: int = 44100,
+                 scrambled_video: bool = False, data_dir: str = "data"):
+        from peppa_tpu_torch.data.dataset import PeppaPigDataset
+
+        self.dataset = PeppaPigDataset(
+            target_size=target_size, split=list(split),
+            fragment_type=fragment_type, duration=None,
+            audio_sample_rate=audio_sample_rate,
+            scrambled_video=scrambled_video, data_dir=data_dir)
+
+    def _encode(self, predict_fn: Union[torch.nn.Module, Callable],
+                batch_size: int,
+                device: Optional[Union[str, torch.device]] = None) -> None:
+        """A model is run by `eval_step` on `device` (None: the card;
+        raises without CUDA), its batches prefetched there; any other
+        callable is given each numpy `ClipBatch` and returns an object with
+        `.video` and `.audio` embeddings."""
+        from peppa_tpu_torch.data.dataset import grouped_batches
+        from peppa_tpu_torch.evaluation.validation import encode_loader
+
+        loader = grouped_batches(self.dataset,
+                                 key=lambda x: x.audio_duration,
+                                 batch_size=batch_size)
+        if isinstance(predict_fn, torch.nn.Module):
+            enc = encode_loader(predict_fn, loader, device,
+                                collect_duration=True)
+            self._video, self._audio = enc["video"], enc["audio"]
+            self._duration = enc["duration"].cpu().numpy()
+            return
+        video, audio, duration = [], [], []
+        for batch in loader:
+            out = predict_fn(batch)
+            video.append(_as_tensor(out.video))
+            audio.append(_as_tensor(out.audio))
+            duration.append(np.asarray(batch.audio_duration))
+        self._video = torch.cat(video)
+        self._audio = torch.cat(audio)
+        self._duration = np.concatenate(duration)
+
+    def _score(self, n_samples: int = 100, seed: Optional[int] = None):
+        return score_triplets(self._video, self._audio, self._duration,
+                              n_samples=n_samples, seed=seed)
+
+    def evaluate(self, predict_fn: Union[torch.nn.Module, Callable],
+                 batch_size: int, n_samples: int = 100,
+                 seed: Optional[int] = None,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> Dict[str, np.ndarray]:
+        """{'accuracy': (n_samples,), 'duration': (n_samples * P,)}."""
+        self._encode(predict_fn, batch_size, device)
+        return self._score(n_samples=n_samples, seed=seed)

@@ -46,7 +46,7 @@ def encode_loader(model, loader: Iterable,
     vs, as_, durs, losses = [], [], [], []
     stream = (loader if limit_batches is None
               else itertools.islice(iter(loader), limit_batches))
-    prefetcher = Prefetcher(stream, lambda b: b.to(dev), depth=2)
+    prefetcher = Prefetcher(stream, dev, depth=2)
     try:
         for batch in prefetcher:
             v, a, loss = eval_step(model, batch, dev)

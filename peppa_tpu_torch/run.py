@@ -4,14 +4,14 @@ The flags of the repository's `run.py`, plus `--device` (default: the
 card; `cpu` for a run on the host):
 
     python -m peppa_tpu_torch.run --config_file hparams_base.yaml \\
-        --synthetic_data --limit_train_batches 16 --max_epochs 1
+        --limit_train_batches 16 --max_epochs 1
 
-It reads the same `hparams_*.yaml` files, stamps the git commit into the
-config, writes `version_N/` under `--log_dir`, and exits 75 when a
-preemption signal stopped the run (after `checkpoints/preempted.ckpt` was
-written), so that a scheduler requeues it; `--auto_resume` then continues
-from it.  Training on the extracted episodes waits for the port's dataset
-classes: `--synthetic_data` is required.
+It trains on the extracted episode tree of `data.data_dir` (`PigData`), or
+with `--synthetic_data` on synthetic clips.  It reads the same
+`hparams_*.yaml` files, stamps the git commit into the config, writes
+`version_N/` under `--log_dir`, and exits 75 when a preemption signal
+stopped the run (after `checkpoints/preempted.ckpt` was written), so that
+a scheduler requeues it; `--auto_resume` then continues from it.
 """
 
 from __future__ import annotations
@@ -69,11 +69,6 @@ def parser() -> ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = parser().parse_args(argv)
     logging.getLogger().setLevel(logging.INFO)
-    if not args.synthetic_data:
-        raise SystemExit(
-            "peppa_tpu_torch.run: training on the extracted episodes needs "
-            "the port's dataset classes, which come in a later slice; pass "
-            "--synthetic_data")
     config = (default_config() if args.config_file is None
               else Config.load(args.config_file))
     t = config.training
@@ -83,19 +78,21 @@ def main(argv: Optional[List[str]] = None) -> int:
             setattr(t, name, getattr(args, name))
     if args.margin is not None:
         config.margin = args.margin
-    config.data.prepare = False
-    config.data.extract = False
+    if args.synthetic_data:
+        config.data.prepare = False
+        config.data.extract = False
     config.git_commit = get_git_commit()
 
-    from peppa_tpu_torch.data.datamodule import SyntheticPigData
+    from peppa_tpu_torch.data.datamodule import PigData, SyntheticPigData
     from peppa_tpu_torch.models.convert import pretrained_loader_from_config
     from peppa_tpu_torch.training.checkpoint import (
         consume_preempted_checkpoint, find_preempted_checkpoint)
     from peppa_tpu_torch.training.loop import Trainer
 
-    data = SyntheticPigData(config, n_train=args.synthetic_train,
-                            n_val=args.synthetic_val,
-                            n_classes=args.synthetic_classes)
+    data = (SyntheticPigData(config, n_train=args.synthetic_train,
+                             n_val=args.synthetic_val,
+                             n_classes=args.synthetic_classes)
+            if args.synthetic_data else PigData(config))
     resume_from = args.resume_from
     auto_resumed = False
     if args.auto_resume and resume_from is None:

@@ -137,7 +137,6 @@ class Trainer:
             lr_at = schedule_fn(cfg.optimizer.schedule, cfg.optimizer.lr,
                                 cfg.optimizer.warmup, cfg.optimizer.t_total)
             step_seed_base = tcfg.seed + 1
-            transfer = lambda b: b.to(dev)
             ckpt = self._ckpt = CheckpointManager(self.version_dir)
             if resume_from is not None:
                 ckpt.restore_monitor_state(
@@ -211,7 +210,7 @@ class Trainer:
                     stream = itertools.islice(stream, skip_batches, None)
                     skip_batches = 0
                 prefetcher = self._prefetcher = Prefetcher(
-                    stream, transfer, cfg.tpu.prefetch)
+                    stream, dev, cfg.tpu.prefetch)
                 epoch_complete = False
                 for batch in prefetcher:
                     state, metrics = train_step(state, batch, step_seed_base,

@@ -416,3 +416,119 @@ def test_validation_on_the_card_runs_the_kernels_only(cuda, monkeypatch):
     assert all(math.isfinite(v) for v in metrics.values())
     assert mha_attention.launches == 2 * batches
     assert fused_triplet_loss.launches == batches
+
+
+# --------------------------------------------- the data pipeline on the card
+def _pack_batches(tmp_path, n_items=24, seconds=0.8):
+    """A pack of `n_items` clips (24x32 frames, 800 Hz) and a plan of
+    batches of 4 padded to `seconds`."""
+    import numpy as np
+
+    from peppa_tpu_torch.data.cache import write_pack
+    from peppa_tpu_torch.data.types import Clip
+
+    rng = np.random.default_rng(0)
+    clips = [Clip(video=rng.integers(0, 256, size=(int(rng.integers(3, 9)),
+                                                   24, 32, 3), dtype=np.uint8),
+                  audio=rng.normal(size=(int(rng.integers(200, 640)),))
+                  .astype(np.float32),
+                  video_duration=0.5, audio_duration=0.5)
+             for _ in range(n_items)]
+    path = str(tmp_path / "items.pack")
+    write_pack(path, clips)
+    pad = (int(round(seconds * 10)), 24, 32, 3, int(round(seconds * 800)))
+    plan = [(list(range(i, i + 4)), pad) for i in range(0, n_items, 4)]
+    return path, plan
+
+
+def test_native_batches_are_pinned(cuda, tmp_path):
+    from peppa_tpu_torch.native.loader import NativeBatchLoader, NativePack
+
+    path, plan = _pack_batches(tmp_path)
+    pack = NativePack(path)
+    batches = list(NativeBatchLoader(pack, plan, n_threads=2, depth=2))
+    assert len(batches) == len(plan)
+    for b in batches:
+        for name in ("video", "audio", "video_duration", "audio_duration",
+                     "video_frames", "audio_samples"):
+            t = getattr(b, name)
+            assert t.device.type == "cpu" and t.is_pinned(), name
+
+
+def _checksum(batch):
+    return [getattr(batch, f).double().sum().item()
+            for f in ("video", "audio", "video_duration", "audio_duration",
+                      "video_frames", "audio_samples")]
+
+
+def test_side_stream_prefetcher_equals_clipbatch_to(cuda, tmp_path):
+    """Several hundred batches, numpy (pinned by the worker) and native
+    (pinned already), through the side-stream copies, while the consumer
+    queues long work on its own stream between them: every batch reads on
+    the consumer's stream as `ClipBatch.to` gives it."""
+    import numpy as np
+
+    from peppa_tpu_torch.data.types import ClipBatch
+    from peppa_tpu_torch.native.loader import NativeBatchLoader, NativePack
+    from peppa_tpu_torch.utils.prefetch import Prefetcher
+
+    rng = np.random.default_rng(1)
+    host = [ClipBatch(
+        video=rng.integers(0, 256, size=(4, 8, 24, 32, 3), dtype=np.uint8),
+        audio=rng.normal(size=(4, 640)).astype(np.float32),
+        video_duration=rng.uniform(size=4).astype(np.float32),
+        audio_duration=rng.uniform(size=4).astype(np.float32),
+        video_frames=rng.integers(1, 9, size=4).astype(np.int32),
+        audio_samples=rng.integers(1, 641, size=4).astype(np.int32))
+        for _ in range(150)]
+    path, plan = _pack_batches(tmp_path, n_items=48)
+    native = list(NativeBatchLoader(NativePack(path), plan * 25, n_threads=4,
+                                    depth=4))
+    assert all(b.video.is_pinned() for b in native)
+    for batches in (host, native):
+        want = [_checksum(b.to(cuda)) for b in batches]
+        before = Prefetcher.side_stream_copies
+        prefetcher = Prefetcher(iter(batches), cuda, depth=3)
+        busy = torch.randn(2048, 2048, device=cuda)
+        got = []
+        for b in prefetcher:
+            for _ in range(4):  # the consumer's stream stays busy
+                busy = torch.tanh(busy @ busy * 1e-3)
+            sums = torch.stack([getattr(b, f).double().sum() for f in (
+                "video", "audio", "video_duration", "audio_duration",
+                "video_frames", "audio_samples")])
+            got.append(sums)
+            assert b.video.device.type == "cuda"
+        prefetcher.close()
+        got = [g.tolist() for g in got]
+        assert got == want
+        assert Prefetcher.side_stream_copies - before == len(batches)
+
+
+def test_native_path_makes_no_pageable_copy(cuda, tmp_path, monkeypatch):
+    """The native loader's pinned batches go to the card with no pinning
+    copy in the prefetcher; numpy batches are pinned there."""
+    from dataclasses import fields
+
+    import numpy as np
+
+    from peppa_tpu_torch.data.types import ClipBatch
+    from peppa_tpu_torch.native.loader import NativeBatchLoader, NativePack
+    from peppa_tpu_torch.utils.prefetch import Prefetcher
+
+    pins = []
+    real = torch.Tensor.pin_memory
+
+    def counting(self, *args, **kw):
+        pins.append(tuple(self.shape))
+        return real(self, *args, **kw)
+
+    path, plan = _pack_batches(tmp_path)
+    loader = NativeBatchLoader(NativePack(path), plan, n_threads=2, depth=2)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", counting)
+    moved = list(Prefetcher(iter(loader), cuda, depth=2))
+    assert len(moved) == len(plan) and pins == []
+    numpy_batch = ClipBatch(**{f.name: getattr(moved[0], f.name).cpu().numpy()
+                               for f in fields(ClipBatch)})
+    list(Prefetcher(iter([numpy_batch]), cuda, depth=0))
+    assert len(pins) == 6 and np.prod(pins[0]) > 0

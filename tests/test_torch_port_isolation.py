@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, no flax, nothing of `peppa_tpu`; and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no JAX, no flax, nothing of `peppa_tpu`, and no
+pandas or cv2 at import (the card's machine has neither); and its entry
+points run on the card unless the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -12,8 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
-sys.modules["jax"] = None      # any import of jax or flax now fails
-sys.modules["flax"] = None
+for blocked in ("jax", "flax", "pandas", "cv2"):
+    sys.modules[blocked] = None  # any import of these now fails
 import peppa_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(peppa_tpu_torch.__path__,
                                                "peppa_tpu_torch.")]
@@ -25,7 +26,7 @@ leaked = sorted(m for m in sys.modules
                 if m == "peppa_tpu" or m.startswith("peppa_tpu."))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 20, names
+assert len(names) >= 30, names
 """
 
 

@@ -84,10 +84,17 @@ def test_cli_writes_a_run_both_packages_read(tmp_path):
     assert port.to_dict() == want.to_dict()
     assert isinstance(jax_cfg.optimizer.e, float)  # 1e-06, not a string
 
+    # without --synthetic_data it trains on the episode tree of
+    # data.data_dir, and there is none
+    cfg = Config.load(config_file)
+    cfg.data.data_dir = str(tmp_path / "no_tree")
+    with open(config_file, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f)
     out = subprocess.run([sys.executable, "-m", "peppa_tpu_torch.run",
-                          "--device", "cpu"], cwd=ROOT, env=_env(),
+                          "--device", "cpu", "--config_file", config_file,
+                          "--log_dir", log_dir], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and "--synthetic_data" in out.stderr
+    assert out.returncode != 0 and "Extract the data first" in out.stderr
 
 
 def test_cli_preempted_by_sigusr1_exits_75_then_auto_resumes(tmp_path):

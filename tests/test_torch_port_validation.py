@@ -125,7 +125,7 @@ def test_batching_functions_match_jax():
                                   [0, 1, 2, 0, 0])
 
 
-def test_synthetic_pig_data_matches_jax():
+def test_synthetic_pig_data_matches_jax(tmp_path):
     jax_cfg, cfg = JaxConfig.from_dict(RAW), Config.from_dict(RAW)
     want = JaxPigData(jax_cfg, n_train=12, n_val=10, seed=2)
     got = SyntheticPigData(cfg, n_train=12, n_val=10, seed=2)
@@ -136,7 +136,8 @@ def test_synthetic_pig_data_matches_jax():
                              got.train_batches(epoch))
     for w, g in zip(want.val_loaders(), got.val_loaders()):
         _assert_same_batches(w, g)
-    with pytest.raises(NotImplementedError, match="SyntheticPigData"):
+    cfg.data.data_dir = str(tmp_path)  # no episode tree there
+    with pytest.raises(RuntimeError, match="Extract the data first"):
         PigData(cfg).setup()
 
 
