@@ -61,15 +61,32 @@ Phases:
      then the native loader alone over one epoch's plan, the copy rate of
      one 2.3 s batch (pinned on a side stream, and pageable through
      `ClipBatch.to`), and the step alone on the fit's 16 batches;
+  6. the evaluation entry (after 4d, on its episode tree): the base model
+     (seeded, bf16) written as a run directory of each format under
+     $TMPDIR (the port's `torch.save`, the JAX package's flax msgpack by
+     the port's encoder, a reference Lightning file with no hparams.yaml)
+     and read back by `load_best_model` on the card (write and load
+     seconds, the weights equal to the source's, a 2.3 s B=8 batch
+     embedded bit-identically); `python -m peppa_tpu_torch.evaluate` on
+     the msgpack directory (the battery: triplet accuracy and recall@1-10
+     of fixed and jittered windows, scrambled and not, 500 bootstrap
+     subsets) and `python -m peppa_tpu_torch.targeted_eval --run` on 42
+     minimal pairs cut from the tree's narration clips, each with its
+     seconds, batches and kernel 1 launches (12 per batch; kernel 3 none;
+     no plain version on the card); one B=8 video encode of the static,
+     r3d_18 and mc3_18 towers, timed; then kernel 1 against its plain
+     version at each path's first and longest shape;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
-  6. one JSON line of per-kernel numbers, the serving and training metrics,
-     and the last line `{"ok": true, "device": {...}}`.
+  7. one JSON line of per-kernel numbers, one of the serving, training and
+     evaluation metrics, the card's name and power limit, and the last line
+     `{"ok": true, "device": {...}}`.
 
 Launch counts are set to 0 just before each main path (3, 4a, 4b, the
-fit and the resumed fit of 4c, the fit and the scorer of 4d) and read just
-after it.
+fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
+the battery, the targeted path and the towers of 6) and read just after
+it.
 
 Any failed check raises, and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -81,10 +98,13 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+T_START = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): memory rate, dense bf16 tensor-core
@@ -837,7 +857,8 @@ def _kept_inputs(inputs: dict, kernel: str):
 
 
 def _hold_path_shapes(report: dict, inputs: dict,
-                      tag: str = "trainer_shapes") -> None:
+                      tag: str = "trainer_shapes",
+                      kernels=("attention", "triplet_loss")) -> None:
     """Each kernel against its plain version on the inputs a path gave it,
     the first of each shape, at phase 2's tolerances: for the trainer's two
     fits (`trainer_shapes`), attention on every validation batch shape (the
@@ -845,7 +866,8 @@ def _hold_path_shapes(report: dict, inputs: dict,
     line clips at B up to 8), the loss at every eval batch size and the
     micro-step's (with its gradient); for the pipeline's fit and scorer
     (`pipeline_shapes`), the same over the episode tree's clips and
-    lines."""
+    lines; for the evaluation entry (`evaluation_shapes`), attention at
+    the shapes its paths gave it (`kernels`: the ones the path runs)."""
     import torch
 
     from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
@@ -854,7 +876,7 @@ def _hold_path_shapes(report: dict, inputs: dict,
         _launch, fused_triplet_loss, fused_triplet_loss_and_grad_plain,
         fused_triplet_loss_plain)
 
-    rows = {"attention": [], "triplet_loss": []}
+    rows = {kernel: [] for kernel in kernels}
     with torch.inference_mode():
         for key in sorted(inputs):
             kernel, shape, dtype, grad, _ = key
@@ -1232,19 +1254,19 @@ def _copy_rates(batch) -> tuple:
             n_bytes / float(np.median(pageable[2:])) / 1e9)
 
 
-def run_pipeline(report: dict, card: str) -> None:
+def run_pipeline(report: dict, card: str, root: str) -> None:
     """`Trainer.fit` of the base configuration (the defaults: jittered 2.3 s
     windows, dropout, layer-drop, B=8, k=8, the native loader) over
-    `PigData` on an episode tree written at full size: the item caches and
-    the pack built once, sanity validation, 16 micro-steps, the full
-    validation, the checkpoints; then `TripletScorer` on the dialog val
-    lines with the trained model.  Around it: the native loader alone over
-    one epoch's plan, the copy rate of one 2.3 s batch pinned and pageable,
-    and the step alone on the fit's 16 batches."""
+    `PigData` on an episode tree written at full size under `root` (kept
+    for phase 6): the item caches and the pack built once, sanity
+    validation, 16 micro-steps, the full validation, the checkpoints; then
+    `TripletScorer` on the dialog val lines with the trained model.  Around
+    it: the native loader alone over one epoch's plan, the copy rate of
+    one 2.3 s batch pinned and pageable, and the step alone on the fit's
+    16 batches."""
     import itertools
     import random
     import shutil
-    import tempfile
     from collections import Counter
 
     import numpy as np
@@ -1264,7 +1286,6 @@ def run_pipeline(report: dict, card: str) -> None:
     from peppa_tpu_torch.training.step import train_step
     from peppa_tpu_torch.utils.prefetch import Prefetcher
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
     undo = []
     try:
         cfg = default_config()
@@ -1460,8 +1481,378 @@ def run_pipeline(report: dict, card: str) -> None:
     finally:
         for u in undo:
             u()
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "logs"), ignore_errors=True)
     _hold_path_shapes(report, inputs, "pipeline_shapes")
+
+
+# ------------------------------------------------------------------ phase 6
+EVAL_SAMPLES = 500  # the battery's bootstrap subsets and triplet rounds
+TARGETED_POS = ("ADJ", "VERB", "NOUN")
+TARGETED_PAIRS = 14  # per POS tag: 42 minimal pairs, 84 clips
+WEIGHT_NORM_RTOL = 1e-6  # the positional conv's g and v
+TOWER_B, TOWER_SECONDS = 8, 2.3
+RUN_META = {"monitor": "valnarr_triplet", "mode": "max",
+            "best_model_score": 0.5, "epoch": 0, "metrics": {}}
+
+
+def _write_run_dirs(model, cfg, runs: str) -> dict:
+    """One run directory of each format under `runs`, each holding `model`
+    as its best checkpoint: the port's (torch.save zip, sidecar,
+    hparams.yaml), the JAX package's (flax msgpack by the port's encoder,
+    sidecar, hparams.yaml) and the reference's (a Lightning file, no
+    sidecar, no hparams.yaml: the embedded hyper_parameters give the
+    config).  kind -> (log_dir, write seconds, file bytes)."""
+    import json
+
+    import numpy as np
+
+    from peppa_tpu_torch.models.convert import (export_jax_variables,
+                                                save_reference_checkpoint)
+    from peppa_tpu_torch.training.checkpoint import save_checkpoint
+    from peppa_tpu_torch.training.flax_msgpack import write_checkpoint
+    from peppa_tpu_torch.training.state import TrainState
+
+    variables = export_jax_variables(model)
+    out = {}
+    for kind in ("port", "jax", "lightning"):
+        log_dir = os.path.join(runs, kind)
+        vdir = os.path.join(log_dir, "version_0")
+        path = os.path.join(vdir, "checkpoints",
+                            "epoch=0-valnarr_triplet=0.50.ckpt")
+        os.makedirs(os.path.dirname(path))
+        meta = dict(RUN_META, best_model_path=path)
+        t0 = time.perf_counter()
+        if kind == "port":
+            cfg.dump(os.path.join(vdir, "hparams.yaml"))
+            save_checkpoint(path, TrainState.create(model, cfg), meta)
+        elif kind == "jax":
+            cfg.dump(os.path.join(vdir, "hparams.yaml"))
+            write_checkpoint(path, {"step": np.asarray(0, np.int32),
+                                    **variables, "opt_state": {}})
+            with open(path + ".json", "w") as f:
+                json.dump(meta, f)
+        else:
+            save_reference_checkpoint(path, variables, cfg,
+                                      monitor=meta["monitor"],
+                                      score=meta["best_model_score"])
+        out[kind] = (log_dir, time.perf_counter() - t0,
+                     os.path.getsize(path))
+    return out
+
+
+def _same_weights(loaded, source) -> float:
+    """Raise unless `loaded` holds `source`'s parameters and statistics:
+    equal, except the weight-norm pair within WEIGHT_NORM_RTOL; returns
+    the pair's largest relative difference."""
+    import torch
+
+    got, want = loaded.state_dict(), source.state_dict()
+    if got.keys() != want.keys():
+        raise AssertionError(f"state dict keys differ: "
+                             f"{sorted(set(got) ^ set(want))[:4]}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        if k.endswith(("pos_conv_g", "pos_conv_v")):
+            rel = ((g - w).abs().max() / w.abs().max()).item()
+            worst = max(worst, rel)
+            if not rel <= WEIGHT_NORM_RTOL:
+                raise AssertionError(f"{k}: relative difference {rel}")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{k} differs from the source's")
+    return worst
+
+
+def _targeted_eval_sets(data_dir: str, cfg, rng) -> int:
+    """data/eval/eval_set_narration_{POS}.csv: TARGETED_PAIRS minimal
+    pairs per tag, each two cuts of 0.4-1.5 s from one of the tree's
+    narration clips, each the other's counterexample; returns the clips."""
+    import csv
+    import glob
+
+    w, h = cfg.data.target_size
+    files = sorted(glob.glob(os.path.join(
+        data_dir, "out", f"{w}x{h}", "narration", "*", "*.npz")))
+    os.makedirs(os.path.join(data_dir, "eval"), exist_ok=True)
+    n = 0
+    for p, pos in enumerate(TARGETED_POS):
+        rows = []
+        for i in range(TARGETED_PAIRS):
+            episode = files[(p * TARGETED_PAIRS + i) % len(files)]
+            t0 = float(rng.uniform(0.5, 7.0))
+            t1 = t0 + float(rng.uniform(0.4, 1.5))
+            t2 = t1 + float(rng.uniform(0.2, 1.0))
+            t3 = t2 + float(rng.uniform(0.4, 1.5))
+            words = (f"{pos.lower()}{i}a", f"{pos.lower()}{i}b")
+            for j, (start, end) in enumerate(((t0, t1), (t2, t3))):
+                rows.append([2 * i + j, episode, round(start, 3),
+                             round(end, 3), f"the {words[j]} one",
+                             words[j], words[1 - j], 2 * i + 1 - j])
+        with open(os.path.join(data_dir, "eval",
+                               f"eval_set_narration_{pos}.csv"), "w",
+                  newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["id", "episode_filepath", "clipStart",
+                             "clipEnd", "transcript", "target_word",
+                             "distractor_word", "id_counterexample"])
+            writer.writerows(rows)
+        n += len(rows)
+    return n
+
+
+def _counted_predict(record: dict):
+    """A wrapper of `evaluation.make_predict` whose forwards count the
+    batches they take in record["batches"] and add their seconds, to a
+    synchronise after each, to record["forward_s"]."""
+    import torch
+
+    def wrap(real):
+        def make(model, device=None):
+            run = real(model, device)
+
+            def counted(batch):
+                record["batches"] += 1
+                t0 = time.perf_counter()
+                out = run(batch)
+                torch.cuda.synchronize()
+                record["forward_s"] += time.perf_counter() - t0
+                return out
+            return counted
+        return make
+    return wrap
+
+
+def _tower_ms(cfg, rng) -> tuple:
+    """One full-width video encode of B=8 2.3 s clips with a config's
+    video tower, from seeded weights: (median ms of 5 after 1, the
+    embeddings' largest |norm - 1|)."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.models.dual_encoder import init_model
+
+    model = init_model(cfg, seed=0)
+    batch = _clip_batch(rng, cfg, TOWER_B, TOWER_SECONDS)
+    video = torch.from_numpy(batch.video).cuda()
+    frames = torch.from_numpy(batch.video_frames).cuda()
+    times = []
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = model.encode_video(video, frames)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    v = v.float().cpu().numpy()
+    if v.shape != (TOWER_B, 512) or not np.isfinite(v).all():
+        raise AssertionError(f"tower embeddings {v.shape}")
+    del model
+    return (float(np.median(times[1:])) * 1e3,
+            float(np.abs(np.linalg.norm(v, axis=1) - 1).max()))
+
+
+def run_evaluation(report: dict, card: str, root: str) -> None:
+    """The evaluation entry at full width (`hparams_base.yaml`, bf16, seeded
+    weights): the model written as a run directory of each format and read
+    back by `load_best_model` on the card (weights equal to the source's,
+    a 2.3 s B=8 batch embedded bit-identically); `python -m
+    peppa_tpu_torch.evaluate` on the JAX-format directory over phase 4d's
+    episode tree (the battery, 500 bootstrap subsets and triplet rounds);
+    `python -m peppa_tpu_torch.targeted_eval --run` on minimal pairs cut
+    from the tree's narration clips; one video encode each of the static,
+    r3d_18 and mc3_18 configurations; then kernel 1 against its plain
+    version at the shapes the battery and the targeted path gave it."""
+    import csv
+    import logging
+    import random
+
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch import evaluate, targeted_eval
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.data import dataset
+    from peppa_tpu_torch.evaluation import evaluation, targeted
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.training.checkpoint import load_best_model
+
+    cfg = default_config()  # hparams_base.yaml: bf16, full width
+    cfg.data.data_dir = os.path.join(root, "data")  # phase 4d's tree
+    rng = np.random.default_rng(6)
+    record = {"plain": 0, "batches": 0, "forward_s": 0.0, "cache": []}
+    inputs = {"battery": {}, "targeted": {}}
+    stats: dict = {}
+    n_layers = cfg.audio.num_layers or 12
+    modules = {"attention": attention, "loss": loss}
+    undo = [_patch(modules[m], name, _count_on_card(record))
+            for m, name in PLAIN_VERSIONS]
+    undo.append(_patch(evaluation, "make_predict", _counted_predict(record)))
+    undo += [_patch(module, "atomic_cache_build", _timed(record, "cache"))
+             for module in (dataset, targeted)]
+    try:
+        # the three run directories, and load_best_model of each
+        source = init_model(cfg, seed=0)
+        written = _write_run_dirs(source, cfg, os.path.join(root, "runs"))
+        batch = _clip_batch(rng, cfg, TRAIN_B, TRAIN_SECONDS)
+        _reset_counts()
+        with torch.inference_mode():
+            want = source(batch.to("cuda"))
+        stats["load_s"], stats["write_s"], stats["bytes"] = {}, {}, {}
+        for kind, (log_dir, write_s, n_bytes) in written.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, config, path = load_best_model(
+                os.path.join(log_dir, "version_0"))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            rel = _same_weights(model, source)
+            with torch.inference_mode():
+                got = model(batch.to("cuda"))
+            same = (torch.equal(got.video, want.video)
+                    and torch.equal(got.audio, want.audio))
+            print(f"evaluation: {kind} run directory written in "
+                  f"{write_s:.2f} s ({n_bytes} bytes), load_best_model on "
+                  f"the card {load_s:.2f} s; weights equal to the source's "
+                  f"(weight-norm pair max rel {rel:.3g}); the 2.3 s B=8 "
+                  f"batch embeds {'bit-identically' if same else 'apart'}")
+            if not same:
+                raise AssertionError(f"{kind}: embeddings differ")
+            if config.to_dict()["audio"] != cfg.to_dict()["audio"] \
+                    and kind != "lightning":
+                raise AssertionError(f"{kind}: config differs")
+            stats["load_s"][kind], stats["write_s"][kind] = load_s, write_s
+            stats["bytes"][kind] = n_bytes
+            del model
+        report["launches"]["checkpoint_formats"] = _counts()
+        want_launches = {"attention_fwd": 4 * n_layers, "attention_bwd": 0,
+                         "triplet_loss": 0}
+        if report["launches"]["checkpoint_formats"] != want_launches:
+            raise AssertionError(f"format launches "
+                                 f"{report['launches']['checkpoint_formats']}")
+        del source
+
+        # the battery CLI on the JAX-format directory
+        results = os.path.join(root, "results")
+        for path_name, argv in (
+                ("battery", ["--versions", "0", "--log_dir",
+                             written["jax"][0], "--results_dir", results,
+                             "--n_samples", str(EVAL_SAMPLES)]),
+                ("targeted", ["--run", "--versions", "0", "--log_dir",
+                              written["jax"][0], "--data_dir",
+                              cfg.data.data_dir, "--results_dir",
+                              os.path.join(results, "targeted")])):
+            if path_name == "targeted":
+                n_clips = _targeted_eval_sets(cfg.data.data_dir, cfg, rng)
+            kept = _patch(wav2vec2, "mha_attention",
+                          _kept_inputs(inputs[path_name], "attention"))
+            random.seed(0)  # the jittered windows (global random)
+            record.update(batches=0, forward_s=0.0, cache=[])
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            level = logging.getLogger().level  # the CLIs set INFO
+            try:
+                main = evaluate.main if path_name == "battery" \
+                    else targeted_eval.main
+                main(argv)
+                torch.cuda.synchronize()
+            finally:
+                kept()
+                logging.getLogger().setLevel(level)
+            stats[f"{path_name}_s"] = time.perf_counter() - t0
+            launches = _counts()
+            stats[f"{path_name}_batches"] = record["batches"]
+            stats[f"{path_name}_forward_s"] = record["forward_s"]
+            stats[f"{path_name}_cache_s"] = sum(record["cache"])
+            report["launches"][path_name] = launches
+            want_launches = {"attention_fwd": n_layers * record["batches"],
+                             "attention_bwd": 0, "triplet_loss": 0}
+            if launches != want_launches or record["plain"]:
+                raise AssertionError(f"{path_name} launches {launches} != "
+                                     f"{want_launches}; plain "
+                                     f"{record['plain']}")
+            print(f"evaluation: {path_name} in {stats[path_name + '_s']:.1f}"
+                  f" s: {record['batches']} batches, their forwards "
+                  f"{record['forward_s']:.1f} s; item caches built "
+                  f"({len(record['cache'])} checked) "
+                  f"{sum(record['cache']):.1f} s; launches {launches}; "
+                  f"plain versions on the card {record['plain']}")
+
+        rows = torch.load(os.path.join(results, "full_scores_v0.pt"),
+                          weights_only=False)
+        stats["battery_rows"] = []
+        for row in rows:
+            summary = {
+                "fragment_type": row["fragment_type"],
+                "scrambled_video": row["scrambled_video"],
+                "triplet_acc": float(row["triplet_acc"].mean()),
+                "recall_at_10_fixed": float(row["recall_at_10_fixed"].mean()),
+                "recall_at_10_jitter": float(
+                    row["recall_at_10_jitter"].mean()),
+                "size": int(row["recall_fixed"].shape[2])}
+            for k in ("triplet_acc", "recall_fixed", "recall_jitter"):
+                x = row[k]
+                if not (isinstance(x, np.ndarray) and x.shape[0] == EVAL_SAMPLES
+                        and np.isfinite(x).all() and (x >= 0).all()
+                        and (x <= 1).all()):
+                    raise AssertionError(f"battery row {summary}: {k}")
+            print(f"evaluation: battery {summary}")
+            stats["battery_rows"].append(summary)
+        if len(rows) != 4 or any(r["recall_fixed"].shape[1] != 11
+                                 for r in rows):
+            raise AssertionError(f"battery rows {len(rows)}")
+        with open(os.path.join(results, "targeted", "version_0",
+                               "minimal_pairs_scores.csv")) as f:
+            table = list(csv.DictReader(f))
+        if len(table) != 2 * n_clips:
+            raise AssertionError(f"targeted rows {len(table)} != "
+                                 f"{2 * n_clips}")
+        stats["targeted_clips"] = n_clips
+        stats["targeted_acc"] = {}
+        for scrambled in ("False", "True"):
+            scores = [float(r["result"]) for r in table
+                      if r["scrambled_video"] == scrambled]
+            stats["targeted_acc"][scrambled] = float(np.mean(scores))
+        print(f"evaluation: targeted triplets, {n_clips} clips of "
+              f"{len(TARGETED_POS) * TARGETED_PAIRS} minimal pairs: mean "
+              f"accuracy {stats['targeted_acc']} (scrambled video or not)")
+
+        # one full-width video encode of each further tower
+        stats["tower_ms"] = {}
+        _reset_counts()
+        for name, video in (("static", {"static": True}),
+                            ("r3d_18", {"version": "r3d_18"}),
+                            ("mc3_18", {"version": "mc3_18"})):
+            variant = default_config()
+            for k, v in video.items():
+                setattr(variant.video, k, v)
+            ms, norm_err = _tower_ms(variant, rng)
+            stats["tower_ms"][name] = ms
+            print(f"evaluation: {name} video tower, B={TOWER_B} "
+                  f"{TOWER_SECONDS} s clips ({variant.training.precision}): "
+                  f"{ms:.2f} ms; max |norm - 1| {norm_err:.2g} ({card})")
+            if not norm_err <= 1e-2:
+                raise AssertionError(f"{name} embeddings not unit norm")
+        report["launches"]["towers"] = _counts()
+        if any(report["launches"]["towers"].values()):
+            raise AssertionError(f"towers launched {_counts()}")
+    finally:
+        for u in undo:
+            u()
+    # kernel 1 against its plain version at each path's first shape and
+    # its longest
+    held = {}
+    for path_name, kept in inputs.items():
+        if not kept:
+            raise AssertionError(f"{path_name}: attention kept no inputs")
+        keys = list(kept)
+        for key in {keys[0], max(keys, key=lambda k: k[1][1])}:  # (B,T,H,hd)
+            held[key] = kept[key]
+    _hold_path_shapes(report, held, "evaluation_shapes",
+                      kernels=("attention",))
+    report["evaluation"] = stats
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1572,20 +1963,28 @@ def main() -> int:
     for name, log in build.build_log.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
 
+    phases = ((2, lambda: (print_kernel_resources(),
+                           check_attention(report),
+                           check_attention_bwd(report),
+                           check_loss(report))),
+              (3, lambda: run_slice(report, card)),
+              ("4a", lambda: run_training(report, card, True)),
+              ("4b", lambda: run_training(report, card, False)),
+              ("4c", lambda: run_trainer(report, card)),
+              ("4d", lambda: run_pipeline(report, card, root)),
+              (6, lambda: run_evaluation(report, card, root)),
+              (5, lambda: (card_vs_cpu(), card_vs_cpu_train())))
     report: dict = {}
-    for phase, fn in ((2, lambda: (print_kernel_resources(),
-                                   check_attention(report),
-                                   check_attention_bwd(report),
-                                   check_loss(report))),
-                      (3, lambda: run_slice(report, card)),
-                      ("4a", lambda: run_training(report, card, True)),
-                      ("4b", lambda: run_training(report, card, False)),
-                      ("4c", lambda: run_trainer(report, card)),
-                      ("4d", lambda: run_pipeline(report, card)),
-                      (5, lambda: (card_vs_cpu(), card_vs_cpu_train()))):
-        t0 = time.perf_counter()
-        fn()
-        print(f"phase {phase} done in {time.perf_counter() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")  # 4d's tree, for 6
+    try:
+        for phase, fn in phases:
+            t0 = time.perf_counter()
+            fn()
+            print(f"phase {phase} done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"chip_smoke: every phase done in "
+          f"{time.perf_counter() - T_START:.1f} s in all")
 
     paths = report["launches"]  # path -> kernel -> launches
     kernels = []
@@ -1614,6 +2013,7 @@ def main() -> int:
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
                       "trainer": report["trainer"],
                       "pipeline": report["pipeline"],
+                      "evaluation": report["evaluation"],
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """The dual audio/video encoder.
 
 Mirrors peppa_tpu/models/dual_encoder.py: the wav2vec2 audio branch and the
-R(2+1)D video branch, `encode_audio` / `encode_video` with tap points, and
-the forward on a `ClipBatch` or a `TripletBatch`.  The static per-frame
-video ablation comes in a later slice.
+video branch (a VideoResNet, or the static per-frame ResNet-18 under
+`video.static`), `encode_audio` / `encode_video` with tap points, and the
+forward on a `ClipBatch` or a `TripletBatch`.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from peppa_tpu_torch.config import Config
 from peppa_tpu_torch.data.types import ClipBatch, TripletBatch
 from peppa_tpu_torch.models.layers import Conv, Dense
 from peppa_tpu_torch.models.normalization import resolve_stats
+from peppa_tpu_torch.models.resnet2d import ImageEncoder
 from peppa_tpu_torch.models.video3d import R3DEncoder
 from peppa_tpu_torch.models.wav2vec2 import (ConvPositionalEmbedding,
                                              Wav2Vec2Config, Wav2Vec2Encoder)
@@ -50,14 +51,18 @@ class PeppaPig(nn.Module):
             full=config.audio.full, pooling=config.audio.pooling,
             project=config.audio.project, cfg=Wav2Vec2Config(**audio_kw),
             dtype=dtype)
+        bn_dtype = (getattr(torch, config.tpu.bn_dtype)
+                    if config.tpu.bn_dtype else None)
         if config.video.static:
-            raise NotImplementedError(
-                "the static per-frame video encoder comes in a later slice")
+            norm = "imagenet" if config.video.pretrained else "peppa"
+            mean, std = resolve_stats(norm, config.data.data_dir)
+            self.video_encoder = ImageEncoder(
+                pooling=config.video.pooling, project=config.video.project,
+                mean=mean, std=std, dtype=dtype, bn_dtype=bn_dtype)
+            return
         # kinetics stats if pretrained else peppa
         norm = "kinetics" if config.video.pretrained else "peppa"
         mean, std = resolve_stats(norm, config.data.data_dir)
-        bn_dtype = (getattr(torch, config.tpu.bn_dtype)
-                    if config.tpu.bn_dtype else None)
         self.video_encoder = R3DEncoder(
             version=config.video.version, pooling=config.video.pooling,
             project=config.video.project, mean=mean, std=std, dtype=dtype,

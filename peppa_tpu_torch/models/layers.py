@@ -57,7 +57,7 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, *kernel))
-        self._conv = {1: F.conv1d, 3: F.conv3d}[len(kernel)]
+        self._conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[len(kernel)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv(x.to(self.dtype), self.weight.to(self.dtype),
@@ -131,6 +131,12 @@ class BatchNorm(nn.Module):
         y = ((x.float() - mean.view(shape)) * mul.view(shape)
              + self.bias.view(shape))
         return y.to(self.dtype)
+
+
+class PlainBatchNorm(BatchNorm):
+    """`BatchNorm` where the JAX package uses flax's `nn.BatchNorm`
+    directly, with no "bn" module around it (the static image encoder):
+    the same function, other names in the JAX variables tree."""
 
 
 class Dropout(nn.Module):

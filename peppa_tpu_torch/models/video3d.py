@@ -1,22 +1,32 @@
-"""R(2+1)D-18 video encoder, channels-last at its public face.
+"""The VideoResNet family (R(2+1)D-18, R3D-18, MC3-18), channels-last at
+its public face.
 
-Mirrors peppa_tpu/models/video3d.py for `version="r2plus1d_18"`: stem
-(1,7,7) stride (1,2,2) -> 45 ch -> BN/ReLU -> (3,1,1) -> 64 ch -> BN/ReLU,
-then four stages of two BasicBlocks of (2+1)D convs (spatial (1,3,3), BN,
-ReLU, temporal (3,1,1)), widths (64, 128, 256, 512), strides (1, 2, 2, 2).
-BatchNorm runs on the running statistics in eval mode; `train=True` uses
-the batch's and updates the running ones (`models/layers.py::BatchNorm`).
+Mirrors peppa_tpu/models/video3d.py.  Four stages of two BasicBlocks,
+widths (64, 128, 256, 512), strides (1, 2, 2, 2), after a stem:
+
+- r2plus1d_18: stem (1,7,7) stride (1,2,2) -> 45 ch -> BN/ReLU -> (3,1,1)
+  -> 64 ch -> BN/ReLU; blocks of (2+1)D convs (spatial (1,3,3), BN, ReLU,
+  temporal (3,1,1));
+- r3d_18: stem (3,7,7) stride (1,2,2) -> 64 ch -> BN/ReLU; blocks of full
+  (3,3,3) convs (`Conv3DSimple`);
+- mc3_18: the r3d stem and layer 1, then (1,3,3) convs with no temporal
+  stride in layers 2-4 (`Conv3DNoTemporal`).
+
+The temporal stride of the trunk is 8 (layers 2-4), 1 for mc3_18; the
+video pool's frame lengths are divided by it.  BatchNorm runs on the
+running statistics in eval mode; `train=True` uses the batch's and updates
+the running ones (`models/layers.py::BatchNorm`).
 
 Input is (B, T, H, W, C) uint8 or float in [0, 1], as in the JAX package;
 it is normalised in float32, cast to the model dtype and permuted to
 (B, C, T, H, W) inside.  The JAX package's space-to-depth stem is an exact
 re-layout of the plain strided conv on the same (t, 7, 7, 3, F) parameter,
-so the port runs the plain conv.  `r3d_18`/`mc3_18` come in a later slice.
+so the port runs the plain conv.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -55,23 +65,75 @@ class Conv2Plus1D(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.temporal(torch.relu(self.bn_mid(self.spatial(x), train)))
 
+    @staticmethod
+    def downsample_stride(s: int) -> Tuple[int, int, int]:
+        return (s, s, s)
+
+
+class Conv3DSimple(nn.Module):
+    """Full (3,3,3) 3D conv."""
+
+    def __init__(self, in_features: int, features: int, mid: int,
+                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype):
+        super().__init__()
+        self.conv = _conv(in_features, features, (3, 3, 3), (stride,) * 3,
+                          dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv(x)
+
+    @staticmethod
+    def downsample_stride(s: int) -> Tuple[int, int, int]:
+        return (s, s, s)
+
+
+class Conv3DNoTemporal(nn.Module):
+    """(1,3,3) spatial-only conv (MC3 layers 2-4)."""
+
+    def __init__(self, in_features: int, features: int, mid: int,
+                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype):
+        super().__init__()
+        self.conv = _conv(in_features, features, (1, 3, 3),
+                          (1, stride, stride), dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv(x)
+
+    @staticmethod
+    def downsample_stride(s: int) -> Tuple[int, int, int]:
+        return (1, s, s)  # no temporal downsampling (torchvision's)
+
+
+CONV_MAKERS = {
+    "r2plus1d_18": [Conv2Plus1D] * 4,
+    "r3d_18": [Conv3DSimple] * 4,
+    "mc3_18": [Conv3DSimple] + [Conv3DNoTemporal] * 3,
+}
+
+
+def temporal_stride(version: str) -> int:
+    """The trunk's stride over frames: T/8 for layers 2-4, 1 for mc3_18."""
+    return 1 if version == "mc3_18" else 8
+
 
 class BasicBlock(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int,
                  dtype: torch.dtype, bn_dtype: torch.dtype,
-                 midplanes_multiple: Optional[int] = None):
+                 midplanes_multiple: Optional[int] = None,
+                 conv_maker: type = Conv2Plus1D):
         super().__init__()
         # torchvision computes midplanes once per block and uses it for both
         mid = midplanes(in_features, features, midplanes_multiple)
-        self.conv1 = Conv2Plus1D(in_features, features, mid, stride, dtype,
-                                 bn_dtype)
+        self.conv1 = conv_maker(in_features, features, mid, stride, dtype,
+                                bn_dtype)
         self.bn1 = BatchNorm(features, bn_dtype)
-        self.conv2 = Conv2Plus1D(features, features, mid, 1, dtype, bn_dtype)
+        self.conv2 = conv_maker(features, features, mid, 1, dtype, bn_dtype)
         self.bn2 = BatchNorm(features, bn_dtype)
         self.downsample = self.bn_down = None
         if stride != 1 or in_features != features:
             self.downsample = _conv(in_features, features, (1, 1, 1),
-                                    (stride,) * 3, dtype)
+                                    conv_maker.downsample_stride(stride),
+                                    dtype)
             self.bn_down = BatchNorm(features, bn_dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -84,30 +146,43 @@ class BasicBlock(nn.Module):
 
 
 class VideoResNetTrunk(nn.Module):
-    """Stem + layers 1-4 of R(2+1)D-18 on (B, C, T, H, W)."""
+    """Stem + layers 1-4 of one VideoResNet version on (B, C, T, H, W)."""
 
     def __init__(self, dtype: torch.dtype, bn_dtype: torch.dtype,
-                 midplanes_multiple: Optional[int] = None):
+                 midplanes_multiple: Optional[int] = None,
+                 version: str = "r2plus1d_18"):
         super().__init__()
-        self.stem_spatial = Conv(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3), dtype)
-        self.stem_bn1 = BatchNorm(45, bn_dtype)
-        self.stem_temporal = _conv(45, 64, (3, 1, 1), (1, 1, 1), dtype)
-        self.stem_bn2 = BatchNorm(64, bn_dtype)
+        if version not in CONV_MAKERS:
+            raise ValueError(f"Unknown video version {version!r}")
+        self.version = version
+        if version == "r2plus1d_18":
+            self.stem_spatial = Conv(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3),
+                                     dtype)
+            self.stem_bn1 = BatchNorm(45, bn_dtype)
+            self.stem_temporal = _conv(45, 64, (3, 1, 1), (1, 1, 1), dtype)
+            self.stem_bn2 = BatchNorm(64, bn_dtype)
+        else:
+            self.stem = Conv(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), dtype)
+            self.stem_bn = BatchNorm(64, bn_dtype)
         self.blocks = []
         in_features = 64
-        for li, (width, stride) in enumerate(
-                zip((64, 128, 256, 512), (1, 2, 2, 2)), 1):
+        for li, (width, stride, maker) in enumerate(
+                zip((64, 128, 256, 512), (1, 2, 2, 2), CONV_MAKERS[version]),
+                1):
             for bi in range(2):
                 name = f"layer{li}_block{bi}"
                 self.add_module(name, BasicBlock(
                     in_features, width, stride if bi == 0 else 1, dtype,
-                    bn_dtype, midplanes_multiple))
+                    bn_dtype, midplanes_multiple, maker))
                 self.blocks.append(name)
                 in_features = width
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = torch.relu(self.stem_bn1(self.stem_spatial(x), train))
-        x = torch.relu(self.stem_bn2(self.stem_temporal(x), train))
+        if self.version == "r2plus1d_18":
+            x = torch.relu(self.stem_bn1(self.stem_spatial(x), train))
+            x = torch.relu(self.stem_bn2(self.stem_temporal(x), train))
+        else:
+            x = torch.relu(self.stem_bn(self.stem(x), train))
         for name in self.blocks:
             x = getattr(self, name)(x, train)
         return x  # (B, 512, T', H', W')
@@ -124,16 +199,14 @@ class R3DEncoder(nn.Module):
                  bn_dtype: Optional[torch.dtype] = None,
                  midplanes_multiple: Optional[int] = None):
         super().__init__()
-        if version != "r2plus1d_18":
-            raise NotImplementedError(
-                f"video version {version!r} comes in a later slice")
         self.dtype = dtype
+        self.t_stride = temporal_stride(version)
         self.register_buffer("mean", torch.tensor(mean, dtype=torch.float32),
                              persistent=False)
         self.register_buffer("std", torch.tensor(std, dtype=torch.float32),
                              persistent=False)
         self.trunk = VideoResNetTrunk(dtype, bn_dtype or dtype,
-                                      midplanes_multiple)
+                                      midplanes_multiple, version)
         self.pool = make_video_pool(pooling)
         self.project = Dense(512, 512, dtype) if project else None
 
@@ -149,8 +222,9 @@ class R3DEncoder(nn.Module):
             return x
         feat_lengths = None
         if frame_lengths is not None:
-            # frame lengths survive the trunk's temporal stride (T/8)
-            feat_lengths = torch.clamp((frame_lengths + 7) // 8, min=1)
+            # frame lengths survive the trunk's temporal stride
+            feat_lengths = torch.clamp(
+                (frame_lengths + self.t_stride - 1) // self.t_stride, min=1)
         pooled = self.pool(x, feat_lengths)
         if tap == "pooled":
             return pooled

@@ -15,8 +15,8 @@ Usage:
 
     svc = EncoderService.from_checkpoint("lightning_logs/version_0")
 
-`from_checkpoint` serves the best checkpoint of one of the port's run
-directories; the JAX package's checkpoints are not read yet.
+`from_checkpoint` serves the best checkpoint of a run directory: the
+port's, the JAX package's (flax msgpack) or the reference's (Lightning).
 """
 
 from __future__ import annotations
@@ -58,9 +58,10 @@ class EncoderService:
                         quantize_int8: Optional[bool] = None,
                         **kw) -> "EncoderService":
         """The service of a run directory's best checkpoint (by its
-        monitor score), with the config of its hparams.yaml, on `device`
-        (None: the card; raises without CUDA).  `quantize_int8=True`
-        raises: W8A8 comes in a later slice."""
+        monitor score; the port's, the JAX package's or the reference's,
+        `training/checkpoint.py::load_best_model`), on `device` (None: the
+        card; raises without CUDA).  `quantize_int8=True` raises: W8A8 is
+        not ported yet."""
         from peppa_tpu_torch.training.checkpoint import load_best_model
 
         if quantize_int8:

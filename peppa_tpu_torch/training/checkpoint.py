@@ -19,8 +19,16 @@ to host memory on the training thread (the next step changes the live
 ones), then one background writer serialises the copy once and publishes
 every due path: tmp file then `os.replace`, and hard links for the second
 and later paths, so a three-way save is one disk write.  At most one save
-is in flight.  Reading the JAX package's flax-msgpack checkpoints and the
-reference's Lightning checkpoints comes in a later slice.
+is in flight.
+
+`load_best_model` also reads the run directories of the JAX package
+(flax-msgpack `.ckpt` files with the same sidecars, read by
+`training/flax_msgpack.py`) and of the reference (Lightning `.ckpt` files,
+ranked by their ModelCheckpoint callback entry, converted by
+`models/convert.py::load_peppa_checkpoint`).  The format is decided per
+file: a torch zip with a sidecar is the port's, a file that is neither a
+zip nor a pickle is the JAX package's (ranked by its sidecar), and a zip
+or pickle with no sidecar is Lightning's.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import json
 import logging
 import os
 import re
+import zipfile
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -349,18 +358,105 @@ def best_checkpoint_in(dirname: str, higher_better: bool = True
     return path, meta
 
 
+def _is_torch_checkpoint(path: str) -> bool:
+    """True for a `torch.save` file: a zip, or a legacy pickle (protocol 2
+    magic); False for a flax-msgpack one.  The port's own files are torch
+    files too: `checkpoint_format` tells them from Lightning's."""
+    if zipfile.is_zipfile(path):
+        return True
+    with open(path, "rb") as f:
+        return f.read(2) == b"\x80\x02"
+
+
+def checkpoint_format(path: str) -> str:
+    """"port" (a torch file with a sidecar), "lightning" (a torch file
+    without one) or "jax" (flax msgpack)."""
+    if not _is_torch_checkpoint(path):
+        return "jax"
+    return "port" if os.path.exists(path + ".json") else "lightning"
+
+
+def load_jax_params(path: str
+                    ) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[str, Any]]:
+    """(params, batch_stats, meta) of a JAX-package checkpoint, without
+    its optimizer state: nested dicts of numpy arrays, as the JAX package's
+    `load_params` gives them."""
+    from peppa_tpu_torch.training.flax_msgpack import read_checkpoint
+
+    payload = read_checkpoint(path)
+    return (payload["params"], payload.get("batch_stats") or {},
+            _read_meta(path))
+
+
+def best_torch_checkpoint_in(dirname: str, higher_better: bool = True
+                             ) -> Tuple[str, Dict[str, Any]]:
+    """The reference Lightning checkpoint of a run directory with the best
+    `best_model_score` in its callbacks entry (keyed by the stubbed
+    ModelCheckpoint class, so the entries are scanned for it), and that
+    entry.  Where a file of the recorded `best_model_path`'s name lies in
+    this directory's checkpoints/, it is the one returned.  Files with a
+    sidecar are the port's or the JAX package's and are skipped."""
+    from peppa_tpu_torch.models.convert import load_torch_checkpoint
+
+    infos = []
+    for path in glob.glob(os.path.join(dirname, "checkpoints", "*.ckpt")):
+        if checkpoint_format(path) != "lightning":
+            continue
+        blob = load_torch_checkpoint(path)
+        for item in dict(blob.get("callbacks") or {}).values():
+            if isinstance(item, dict) \
+                    and item.get("best_model_score") is not None:
+                infos.append((path, {
+                    "monitor": item.get("monitor"),
+                    "best_model_score": float(torch.as_tensor(
+                        item["best_model_score"])),
+                    "best_model_path": item.get("best_model_path"),
+                }))
+                break
+    if not infos:
+        raise FileNotFoundError(f"No scored torch checkpoints under {dirname}")
+    infos.sort(key=lambda x: x[1]["best_model_score"], reverse=higher_better)
+    path, meta = infos[0]
+    recorded = meta.get("best_model_path")
+    if recorded:
+        local = os.path.join(dirname, "checkpoints", os.path.basename(recorded))
+        if os.path.exists(local):
+            path = local
+    logging.info("Best %s: %s at %s", meta.get("monitor"),
+                 meta.get("best_model_score"), path)
+    return path, meta
+
+
 def load_best_model(dirname: str, higher_better: bool = True,
                     device: Optional[Union[str, torch.device]] = None):
     """(model, config, checkpoint path): the model of a run directory's
-    best checkpoint, built from its hparams.yaml, in eval mode on `device`
-    (None: the card; raises without CUDA)."""
+    best checkpoint, in eval mode on `device` (None: the card; raises
+    without CUDA), for the port's, the JAX package's and the reference's
+    run directories.  The config is hparams.yaml's; a reference directory
+    without one uses the checkpoint's embedded hyper_parameters."""
+    from peppa_tpu_torch.models.convert import (load_jax_variables,
+                                                load_peppa_checkpoint)
     from peppa_tpu_torch.models.dual_encoder import PeppaPig
     from peppa_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    path, _ = best_checkpoint_in(dirname, higher_better)
-    config = Config.load(os.path.join(dirname, "hparams.yaml"))
-    model_state, _ = load_params(path)
+    hparams = os.path.join(dirname, "hparams.yaml")
+    try:
+        path, _ = best_checkpoint_in(dirname, higher_better)
+    except FileNotFoundError:
+        path, _ = best_torch_checkpoint_in(dirname, higher_better)
+        config = Config.load(hparams) if os.path.exists(hparams) else None
+        model, config, _ = load_peppa_checkpoint(path, config, device=dev)
+        return model.eval(), config, path
+    config = Config.load(hparams)
     model = PeppaPig(config)
-    model.load_state_dict(model_state)
+    if checkpoint_format(path) == "port":
+        model_state, _ = load_params(path)
+        model.load_state_dict(model_state)
+    else:
+        params, batch_stats, _ = load_jax_params(path)
+        variables = {"params": params}
+        if batch_stats:
+            variables["batch_stats"] = batch_stats
+        load_jax_variables(model, variables)
     return model.eval().to(dev), config, path

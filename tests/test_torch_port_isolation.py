@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, no flax, nothing of `peppa_tpu`, and no
-pandas or cv2 at import (the card's machine has neither); and its entry
-points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no JAX, no flax, no msgpack, nothing of
+`peppa_tpu`, and no pandas or cv2 at import (the card's machine has
+neither); and its entry points run on the card unless the caller asks for
+the CPU."""
 
 import os
 import subprocess
@@ -13,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
-for blocked in ("jax", "flax", "pandas", "cv2"):
+for blocked in ("jax", "flax", "msgpack", "pandas", "cv2"):
     sys.modules[blocked] = None  # any import of these now fails
 import peppa_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(peppa_tpu_torch.__path__,
@@ -56,6 +57,25 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_evaluation_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The evaluation entry: `load_best_model`, `make_predict`
+    and both CLIs default to the card and raise without it, before they
+    read anything."""
+    from peppa_tpu_torch import evaluate, targeted_eval
+    from peppa_tpu_torch.evaluation.evaluation import make_predict
+    from peppa_tpu_torch.training.checkpoint import load_best_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: load_best_model(str(tmp_path)),
+                 lambda: make_predict(torch.nn.Linear(1, 1)),
+                 lambda: evaluate.main(["--versions", "0", "--log_dir",
+                                        str(tmp_path)]),
+                 lambda: targeted_eval.main(["--run", "--versions", "0",
+                                             "--log_dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
