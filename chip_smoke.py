@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/H100 port (`peppa_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py            # one card, no arguments
+    python3 chip_smoke.py --phases 7 # some phases (and what they read)
 
 Phases:
   1. the card's name and power limit; build the CUDA kernels from
@@ -76,17 +77,36 @@ Phases:
      no plain version on the card); one B=8 video encode of the static,
      r3d_18 and mc3_18 towers, timed; then kernel 1 against its plain
      version at each path's first and longest shape;
+  7. the results path (after 6, on its run directories and score files):
+     a realign tree of 40 utterances of 1-4 s as 44.1 kHz WAV with
+     gentle-style word spans, phones and speakers written under 4d's tree,
+     narration test episodes added, a static and a float32 run directory
+     beside 6's; then each step whose host packages are installed
+     (RESULTS_STEPS; the others are named with the missing package):
+     `grsa.Embedder`'s five stages (kernel 1: 12 launches a batch on the
+     untrained, trained, project and context stages, none on conv), the
+     float32 Embedder on the card against the CPU, `grsa.main` or
+     `pairwise` of the multiword utterances, `embed_utterances`,
+     `unpairwise`, `stats.main`, `word_type`, `vanilla_rsa`, `probe`,
+     `duration_effect` and `duration_effect_scramble` (the pretraining_a,
+     static and base runs of a conditions.yaml), `test_run`, and the
+     tables and figures (`merge_scores`, `format_tables`, `test_table`,
+     `plots`, `recall_at_1_to_n_plot`, `duration_effect_plot`, the
+     targeted CLI's `--plot`); each step's seconds; kernel 1 against its
+     plain version on every shape the phase gave it;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
-  7. one JSON line of per-kernel numbers, one of the serving, training and
-     evaluation metrics, the card's name and power limit, and the last line
-     `{"ok": true, "device": {...}}`.
+then one JSON line of per-kernel numbers, one of the serving, training,
+evaluation and results metrics, the card's name and power limit, and the
+last line `{"ok": true, "device": {...}}`.  With `--phases`, only those
+phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
+7 brings phase 6), and the summary is their records.
 
 Launch counts are set to 0 just before each main path (3, 4a, 4b, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
-the battery, the targeted path and the towers of 6) and read just after
-it.
+the battery, the targeted path and the towers of 6, each model step of
+7) and read just after it.
 
 Any failed check raises, and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -601,7 +621,7 @@ def run_slice(report: dict, card: str) -> None:
     if not (np.isfinite(loss.item())
             and abs(loss.item() - plain) <= 1e-5 * abs(plain)):
         raise AssertionError(f"eval loss {loss.item()} vs plain {plain}")
-    report["launches"] = {"serve": launches}
+    report["launches"]["serve"] = launches
 
     # encode throughput at B=32 on the 2.3 s bucket (host clock around
     # synchronised forwards; requests already on the device)
@@ -858,7 +878,8 @@ def _kept_inputs(inputs: dict, kernel: str):
 
 def _hold_path_shapes(report: dict, inputs: dict,
                       tag: str = "trainer_shapes",
-                      kernels=("attention", "triplet_loss")) -> None:
+                      kernels=("attention", "triplet_loss"),
+                      each: bool = True) -> None:
     """Each kernel against its plain version on the inputs a path gave it,
     the first of each shape, at phase 2's tolerances: for the trainer's two
     fits (`trainer_shapes`), attention on every validation batch shape (the
@@ -866,8 +887,10 @@ def _hold_path_shapes(report: dict, inputs: dict,
     line clips at B up to 8), the loss at every eval batch size and the
     micro-step's (with its gradient); for the pipeline's fit and scorer
     (`pipeline_shapes`), the same over the episode tree's clips and
-    lines; for the evaluation entry (`evaluation_shapes`), attention at
-    the shapes its paths gave it (`kernels`: the ones the path runs)."""
+    lines; for the evaluation entry (`evaluation_shapes`) and the results
+    path (`results_shapes`), attention at the shapes its paths gave it
+    (`kernels`: the ones the path runs).  Without `each`, one line per
+    kernel sums the shapes up."""
     import torch
 
     from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
@@ -908,17 +931,27 @@ def _hold_path_shapes(report: dict, inputs: dict,
                 tol = (f"rtol {LOSS_RTOL} atol {LOSS_ATOL}"
                        + (f", gradients rtol {LOSS_GRAD_RTOL}" if grad
                           else ""))
-            print(f"{tag.replace('_', ' ')}: {kernel} {list(shape)} {dtype}"
-                  f"{' with the gradient' if grad else ''}: max|d|="
-                  f"{err:.3g} against the plain version ({tol})")
+            if each:
+                print(f"{tag.replace('_', ' ')}: {kernel} {list(shape)} "
+                      f"{dtype}{' with the gradient' if grad else ''}: "
+                      f"max|d|={err:.3g} against the plain version ({tol})")
             rows[kernel].append({"shape": list(shape), "dtype": dtype,
                                  "grad": grad, "max_abs_err": err})
     for kernel in rows:
         if not rows[kernel]:
             raise AssertionError(f"{tag}: {kernel} was given no inputs")
-        report[kernel][tag] = rows[kernel]
-        report[kernel]["max_abs_err"] = max(
-            [report[kernel]["max_abs_err"]]
+        if not each:
+            worst = max(rows[kernel], key=lambda r: r["max_abs_err"])
+            print(f"{tag.replace('_', ' ')}: {kernel} on "
+                  f"{len(rows[kernel])} shapes (dtypes "
+                  f"{sorted({r['dtype'] for r in rows[kernel]})}): worst "
+                  f"max|d|={worst['max_abs_err']:.3g} at {worst['shape']} "
+                  f"{worst['dtype']} against the plain version "
+                  f"({TOL_ATTN})")
+        held = report.setdefault(kernel, {"max_abs_err": 0.0})  # --phases
+        held[tag] = rows[kernel]
+        held["max_abs_err"] = max(
+            [held["max_abs_err"]]
             + [r["max_abs_err"] for r in rows[kernel]])
 
 
@@ -1254,6 +1287,29 @@ def _copy_rates(batch) -> tuple:
             n_bytes / float(np.median(pageable[2:])) / 1e9)
 
 
+def _write_pipeline_tree(cfg) -> tuple:
+    """The episode tree of PIPELINE_EPISODES under cfg.data.data_dir, at
+    the config's frame size and sample rate: (seconds, bytes)."""
+    from peppa_tpu_torch.data.synthetic import make_synthetic_episode_tree
+
+    d = cfg.data
+    w, h = d.target_size
+    t0 = time.perf_counter()
+    for fragment, episodes in PIPELINE_EPISODES.items():
+        make_synthetic_episode_tree(
+            d.data_dir, target_size=(w, h), fragment_type=fragment,
+            episodes=episodes, clips_per_episode=PIPELINE_CLIPS,
+            clip_seconds=PIPELINE_CLIP_S,
+            sample_rate=d.audio_sample_rate, seed=0, correlated=True)
+    tree_s = time.perf_counter() - t0
+    tree_bytes = _dir_bytes(d.data_dir, "out/*/*/*/*.npz")
+    n_files = PIPELINE_CLIPS * sum(map(len, PIPELINE_EPISODES.values()))
+    print(f"pipeline: episode tree of {n_files} clips of "
+          f"{PIPELINE_CLIP_S} s ({w}x{h}, {d.audio_sample_rate} Hz) "
+          f"written in {tree_s:.1f} s, {tree_bytes} bytes")
+    return tree_s, tree_bytes
+
+
 def run_pipeline(report: dict, card: str, root: str) -> None:
     """`Trainer.fit` of the base configuration (the defaults: jittered 2.3 s
     windows, dropout, layer-drop, B=8, k=8, the native loader) over
@@ -1275,7 +1331,6 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
     from peppa_tpu_torch.config import default_config
     from peppa_tpu_torch.data import cache as cache_module
     from peppa_tpu_torch.data.datamodule import PigData
-    from peppa_tpu_torch.data.synthetic import make_synthetic_episode_tree
     from peppa_tpu_torch.evaluation.triplet import TripletScorer
     from peppa_tpu_torch.models import wav2vec2
     from peppa_tpu_torch.native.loader import (NativeBatchLoader, NativePack,
@@ -1291,20 +1346,7 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
         cfg = default_config()
         d = cfg.data
         d.data_dir = os.path.join(root, "data")
-        w, h = d.target_size
-        t0 = time.perf_counter()
-        for fragment, episodes in PIPELINE_EPISODES.items():
-            make_synthetic_episode_tree(
-                d.data_dir, target_size=(w, h), fragment_type=fragment,
-                episodes=episodes, clips_per_episode=PIPELINE_CLIPS,
-                clip_seconds=PIPELINE_CLIP_S,
-                sample_rate=d.audio_sample_rate, seed=0, correlated=True)
-        tree_s = time.perf_counter() - t0
-        tree_bytes = _dir_bytes(d.data_dir, "out/*/*/*/*.npz")
-        n_files = PIPELINE_CLIPS * sum(map(len, PIPELINE_EPISODES.values()))
-        print(f"pipeline: episode tree of {n_files} clips of "
-              f"{PIPELINE_CLIP_S} s ({w}x{h}, {d.audio_sample_rate} Hz) "
-              f"written in {tree_s:.1f} s, {tree_bytes} bytes")
+        tree_s, tree_bytes = _write_pipeline_tree(cfg)
 
         cfg.training.max_epochs = 1
         cfg.training.limit_train_batches = TRAINER_MICRO_STEPS
@@ -1390,7 +1432,7 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
         # TripletScorer on the dialog val lines (the cache of val_dia3)
         _reset_counts()
         t0 = time.perf_counter()
-        scorer = TripletScorer("dialog", ["val"], target_size=(w, h),
+        scorer = TripletScorer("dialog", ["val"], target_size=d.target_size,
                                audio_sample_rate=d.audio_sample_rate,
                                data_dir=d.data_dir)
         tri = scorer.evaluate(state.model, batch_size=d.val.batch_size,
@@ -1680,6 +1722,8 @@ def run_evaluation(report: dict, card: str, root: str) -> None:
 
     cfg = default_config()  # hparams_base.yaml: bf16, full width
     cfg.data.data_dir = os.path.join(root, "data")  # phase 4d's tree
+    if not os.path.isdir(cfg.data.data_dir):  # phase 6 without 4d
+        _write_pipeline_tree(cfg)
     rng = np.random.default_rng(6)
     record = {"plain": 0, "batches": 0, "forward_s": 0.0, "cache": []}
     inputs = {"battery": {}, "targeted": {}}
@@ -1855,6 +1899,472 @@ def run_evaluation(report: dict, card: str, root: str) -> None:
     report["evaluation"] = stats
 
 
+# ------------------------------------------------------------------ phase 7
+# the host packages the results path imports inside its functions
+RESULTS_PACKAGES = ("pandas", "scipy", "sklearn", "matplotlib", "Levenshtein",
+                    "yaml", "jinja2")
+# each step of phase 7 and the host packages it needs beyond torch and
+# numpy, in the order the phase takes them; a step whose packages are not
+# all installed is left out, and named
+RESULTS_STEPS = (
+    ("grsa.Embedder.embed", ()),
+    ("grsa.main", ("pandas", "Levenshtein")),  # words carry phonemes
+    ("grsa.pairwise multiword", ()),  # utterances carry none
+    ("grsa.embed_utterances", ()),
+    ("grsa.unpairwise", ("pandas", "scipy", "Levenshtein", "matplotlib")),
+    ("stats.main", ("pandas", "scipy", "matplotlib", "Levenshtein")),
+    ("grsa.word_type", ("pandas",)),
+    ("grsa.vanilla_rsa", ("pandas",)),
+    ("grsa.probe", ("pandas", "sklearn")),
+    ("duration_effect", ()),
+    ("duration_effect_scramble", ()),
+    ("test_run", ()),
+    ("merge_scores", ()),
+    ("format_tables", ("pandas", "jinja2")),
+    ("test_table", ("pandas", "jinja2")),
+    ("plots", ("pandas", "matplotlib")),
+    ("recall_at_1_to_n_plot", ("matplotlib",)),
+    ("duration_effect_plot", ("pandas", "matplotlib")),
+    ("targeted_eval --plot", ("pandas", "scipy", "matplotlib", "jinja2")),
+    ("targeted_eval.create_results_table", ("pandas", "jinja2")),
+)
+# the realign tree: 44.1 kHz utterances of 1-4 s, 2-6 words each
+REALIGN_EPISODES = {"dialog": (197, 198, 199, 200), "narration": (1, 2, 3, 4)}
+REALIGN_PER_EPISODE = 5
+REALIGN_RATE = 44100  # UttData's rate, whatever the run's config says
+REALIGN_LEXICON = {
+    "peppa": "P EH1 P AH0", "george": "JH AO1 R JH", "muddy": "M AH1 D IY0",
+    "puddle": "P AH1 D AH0 L", "jump": "JH AH1 M P", "daddy": "D AE1 D IY0",
+    "mummy": "M AH1 M IY0", "pig": "P IH1 G", "big": "B IH1 G",
+    "house": "HH AW1 S", "run": "R AH1 N", "dinosaur": "D AY1 N AH0 S AO2 R",
+    "rabbit": "R AE1 B AH0 T", "garden": "G AA1 R D AH0 N",
+    "splash": "S P L AE1 SH", "happy": "HH AE1 P IY0", "teddy": "T EH1 D IY0",
+    "boots": "B UW1 T S", "rain": "R EY1 N", "play": "P L EY1"}
+REALIGN_SPEAKERS = ("Peppa", "George", "Daddy Pig", "Mummy Pig")
+RESULTS_CONDITIONS = {"base": [0], "pretraining_a": [1], "static": [2],
+                      "pretraining_v": [], "pretraining_none": [],
+                      "freeze_wav2vec": [], "jitter": []}
+# Embedder.embed's stages, in the order it encodes them, and their taps
+STAGES = ("untrained", "trained", "project", "wav2vec", "conv")
+STAGE_TAPS = {"untrained": "embedding", "trained": "embedding",
+              "project": "embedding", "wav2vec": "context", "conv": "conv"}
+TEST_EPISODES = (105, 106)  # narration test, for test_run
+
+
+def _write_realign_tree(data_dir: str, rng, per_episode: int,
+                        episodes=REALIGN_EPISODES) -> int:
+    """{data_dir}/out/realign/{fragment}/ep_{N}/0/{i}.{wav,json}: mono
+    16-bit WAV at REALIGN_RATE and gentle-style JSON (transcript, word
+    spans at 10 ms, ARPAbet phones with position tags, a speaker: one of
+    four on the dialog lines, "Narrator" on the narration ones); returns
+    the number of words."""
+    import json
+    import wave
+
+    import numpy as np
+
+    words = sorted(REALIGN_LEXICON)
+    n_words = 0
+    for fragment, numbers in episodes.items():
+        for ep in numbers:
+            base = os.path.join(data_dir, "out", "realign", fragment,
+                                f"ep_{ep}", "0")
+            os.makedirs(base, exist_ok=True)
+            for i in range(per_episode):
+                n = int(rng.integers(2, 7))
+                spans = rng.integers(20, 60, n) / 100.0  # 0.2-0.6 s
+                gaps = rng.integers(0, 15, n) / 100.0
+                t, entries = 0.05, []
+                for j in range(n):
+                    word = words[int(rng.integers(len(words)))]
+                    arpa = REALIGN_LEXICON[word].split()
+                    tags = (["B"] + ["I"] * (len(arpa) - 2) + ["E"])
+                    entries.append({
+                        "word": word, "alignedWord": word,
+                        "case": "success", "start": round(t, 2),
+                        "end": round(t + spans[j], 2),
+                        "phones": [{"phone": f"{p.lower()}_{tag}",
+                                    "duration": 0.05}
+                                   for p, tag in zip(arpa, tags)]})
+                    t += spans[j] + gaps[j]
+                total = max(t + 0.05, 1.0)
+                speaker = (REALIGN_SPEAKERS[int(rng.integers(4))]
+                           if fragment == "dialog" else "Narrator")
+                meta = {"transcript": " ".join(e["word"] for e in entries),
+                        "words": entries, "speaker": speaker}
+                stem = os.path.join(base, str(i))
+                with open(stem + ".json", "w") as f:
+                    json.dump(meta, f)
+                tt = np.arange(int(total * REALIGN_RATE)) / REALIGN_RATE
+                audio = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * tt)
+                         + 0.05 * rng.standard_normal(len(tt)))
+                with wave.open(stem + ".wav", "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(REALIGN_RATE)
+                    w.writeframes((audio * 32767).astype("<i2").tobytes())
+                n_words += n
+    return n_words
+
+
+def _counted_encode(record: dict):
+    """A wrapper of `grsa._encode` that appends (tap, batches, kernel 1
+    launches) of each call to record["encode"]."""
+    from peppa_tpu_torch.ops.cuda.attention import mha_attention
+
+    def wrap(real):
+        def run(model, batches, tap="embedding", pool_time=False):
+            batches = list(batches)
+            before = mha_attention.launches
+            out = real(model, batches, tap, pool_time)
+            record["encode"].append((tap, len(batches),
+                                     mha_attention.launches - before))
+            return out
+        return run
+    return wrap
+
+
+def _results_runs(root: str, cfg) -> tuple:
+    """Phase 6's JAX-format and port run directories as versions 0 and 1
+    of one log directory (links), a static run directory written as
+    version 2, and a float32 copy of version 1's config and weights as
+    version 3 (for the card against the CPU); conditions.yaml naming 0,
+    1 and 2.  Returns (log_dir, conditions path)."""
+    import yaml
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.training.checkpoint import save_checkpoint
+    from peppa_tpu_torch.training.state import TrainState
+
+    log_dir = os.path.join(root, "runs7")
+    os.makedirs(log_dir)
+    for version, kind in ((0, "jax"), (1, "port")):
+        os.symlink(os.path.join(root, "runs", kind, "version_0"),
+                   os.path.join(log_dir, f"version_{version}"))
+    static, fp32 = default_config(), default_config()
+    static.video.static = True
+    fp32.training.precision = "fp32"
+    for version, config, seed in ((2, static, 2), (3, fp32, 0)):
+        config.data.data_dir = cfg.data.data_dir
+        model = init_model(config, seed=seed)
+        vdir = os.path.join(log_dir, f"version_{version}")
+        path = os.path.join(vdir, "checkpoints",
+                            "epoch=0-valnarr_triplet=0.50.ckpt")
+        os.makedirs(os.path.dirname(path))
+        config.dump(os.path.join(vdir, "hparams.yaml"))
+        save_checkpoint(path, TrainState.create(model, config),
+                        dict(RUN_META, best_model_path=path))
+        del model
+    conditions = os.path.join(root, "conditions.yaml")
+    with open(conditions, "w") as f:
+        yaml.safe_dump(RESULTS_CONDITIONS, f)
+    return log_dir, conditions
+
+
+def _embedder_card_vs_cpu(log_dir: str, data_dir: str) -> float:
+    """`Embedder.embed`'s five stages of the float32 run (version 3) on a
+    few utterances, on the card and on the CPU: the largest difference,
+    which must stay within EMB_TOL."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.analysis import grsa
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            e = grsa.Embedder(3, log_dir, data_dir)
+            e.load_audio()
+            e.embed(device=device)
+            out[device] = e.embedding
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    worst = 0.0
+    for fragment_type, stages in out["cpu"].items():
+        for stage, want in stages.items():
+            got = out["cuda"][fragment_type][stage]
+            err = float(np.abs(got - want).max())
+            print(f"results: Embedder {fragment_type} {stage} {got.shape}, "
+                  f"float32, card vs CPU: max|d|={err:.3g} (tol {EMB_TOL})")
+            if not err <= EMB_TOL:
+                raise AssertionError(f"Embedder {stage} card vs CPU: {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def run_results(report: dict, card: str, root: str) -> None:
+    """The results path at full width (`hparams_base.yaml`, bf16, seeded
+    weights) on a realign tree written under phase 4d's episode tree
+    (module doc, phase 7): the GRSA analysis (`Embedder`'s five stages,
+    `pairwise`, `embed_utterances`, the RSA, probe and regression steps),
+    the duration effects over phase 6's run directories and a static one,
+    `test_run`, and the tables and figures over the score files; each
+    step whose host packages are installed (RESULTS_STEPS).  Kernel 1's
+    launches per path and per Embedder stage (none on 'conv'), no plain
+    version on the card; `Embedder` card against CPU in float32; kernel 1
+    against its plain version on each shape the path gave it."""
+    import contextlib
+    import csv
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch import targeted_eval
+    from peppa_tpu_torch.analysis import grsa, plotting, stats
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.data.synthetic import make_synthetic_episode_tree
+    from peppa_tpu_torch.evaluation import evaluation
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.ops.cuda import attention, loss
+
+    t_phase = time.perf_counter()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in RESULTS_PACKAGES}
+    print(f"results: host packages installed {have}")
+    run, left_out = [], {}
+    for name, needs in RESULTS_STEPS:
+        missing = [m for m in needs if not have[m]]
+        if missing:
+            left_out[name] = missing
+            print(f"results: {name} left out: {', '.join(missing)} not "
+                  "installed")
+        else:
+            run.append(name)
+
+    cfg = default_config()
+    cfg.data.data_dir = os.path.join(root, "data")  # phase 4d's tree
+    data_dir = cfg.data.data_dir
+    results = os.path.join(root, "results")  # phase 6's score files
+    results7 = os.path.join(root, "results7")
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    n_words = _write_realign_tree(data_dir, rng, REALIGN_PER_EPISODE)
+    small = os.path.join(root, "data_small")
+    _write_realign_tree(small, rng, 1, {"dialog": (197,),
+                                         "narration": (1,)})
+    w, h = cfg.data.target_size
+    make_synthetic_episode_tree(
+        data_dir, target_size=(w, h), fragment_type="narration",
+        episodes=TEST_EPISODES, clips_per_episode=PIPELINE_CLIPS,
+        clip_seconds=PIPELINE_CLIP_S, sample_rate=cfg.data.audio_sample_rate,
+        seed=1, correlated=True)
+    log_dir, conditions = _results_runs(root, cfg)
+    n_utts = (sum(map(len, REALIGN_EPISODES.values()))
+              * REALIGN_PER_EPISODE)
+    print(f"results: realign tree of {n_utts} utterances ({n_words} words) "
+          f"at {REALIGN_RATE} Hz, narration test episodes {TEST_EPISODES}, "
+          f"a static and a float32 run directory, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    n_layers = cfg.audio.num_layers or 12
+    record = {"plain": 0, "encode": []}
+    inputs: dict = {}
+    stats_out = {"steps_s": {}, "left_out": left_out}
+    modules = {"attention": attention, "loss": loss}
+    undo = [_patch(modules[m], name, _count_on_card(record))
+            for m, name in PLAIN_VERSIONS]
+    undo.append(_patch(grsa, "_encode", _counted_encode(record)))
+    undo.append(_patch(wav2vec2, "mha_attention",
+                       _kept_inputs(inputs, "attention")))
+
+    @contextlib.contextmanager
+    def step(name, path=None):
+        """Time a step; with `path`, its launches are that path's."""
+        record["encode"] = []
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        stats_out["steps_s"][name] = time.perf_counter() - t0
+        launches = _counts()
+        if path is not None:
+            report["launches"][path] = launches
+        print(f"results: {name} in {stats_out['steps_s'][name]:.2f} s; "
+              f"launches {launches}")
+        if launches["attention_bwd"] or launches["triplet_loss"]:
+            raise AssertionError(f"{name}: {launches}")
+
+    embedder = None
+    try:
+        if "grsa.Embedder.embed" in run:
+            with step("grsa.Embedder.embed", "results_embedder"):
+                embedder = grsa.Embedder(0, log_dir, data_dir)
+                embedder.load_audio()
+                embedder.embed()
+            calls = record["encode"]
+            if len(calls) != 2 * len(STAGES):
+                raise AssertionError(f"Embedder encodes {calls}")
+            per_stage = {s: [0, 0] for s in STAGES}
+            for i, (tap, batches, launches) in enumerate(calls):
+                stage = STAGES[i % len(STAGES)]
+                if tap != STAGE_TAPS[stage]:
+                    raise AssertionError(f"call {i}: tap {tap} for {stage}")
+                per_stage[stage][0] += batches
+                per_stage[stage][1] += launches
+            for stage, (batches, launches) in per_stage.items():
+                want = 0 if stage == "conv" else n_layers * batches
+                print(f"results: Embedder stage {stage}: {batches} "
+                      f"batches, kernel 1 launches {launches} "
+                      f"(expected {want})")
+                if launches != want or (stage != "conv"
+                                        and not launches):
+                    raise AssertionError(f"stage {stage}: {launches}")
+            stats_out["stage_launches"] = {
+                s: v[1] for s, v in per_stage.items()}
+            for fragment_type, stages in embedder.embedding.items():
+                for stage, x in stages.items():
+                    if x.shape[0] != len(embedder.audio[fragment_type]) \
+                            or not np.isfinite(x).all():
+                        raise AssertionError(f"{fragment_type} {stage}")
+                for stage in ("untrained", "trained", "project"):
+                    norm = np.linalg.norm(stages[stage], axis=1)
+                    if not np.abs(norm - 1).max() <= 1e-2:
+                        raise AssertionError(f"{stage} norms {norm}")
+            with step("Embedder card vs CPU", "results_card_vs_cpu"):
+                stats_out["card_vs_cpu_max_abs"] = \
+                    _embedder_card_vs_cpu(log_dir, small)
+        pairwise_csv = os.path.join(results7, "pairwise.csv")
+        if "grsa.main" in run:
+            with step("grsa.main", "results_grsa_main"):
+                grsa.main([0], log_dir=log_dir, data_dir=data_dir,
+                          out_csv=pairwise_csv)
+        if "grsa.pairwise multiword" in run:
+            with step("grsa.pairwise multiword", "results_pairwise"):
+                for fragment_type in ("dialog", "narration"):
+                    rows = list(grsa.pairwise(
+                        0, fragment_type, multiword=True,
+                        log_dir=log_dir, data_dir=data_dir))
+                    n = n_utts // 2
+                    sims = np.array([[r["sim_1"], r["sim_2"]]
+                                     for r in rows])
+                    if len(rows) != n * (n - 1) // 2 or not (
+                            np.abs(sims) <= 1 + 1e-5).all():
+                        raise AssertionError(f"pairwise {len(rows)}")
+                stats_out["pairwise_records"] = len(rows)
+        if "grsa.embed_utterances" in run:
+            with step("grsa.embed_utterances",
+                      "results_embed_utterances"):
+                for fragment_type in ("dialog", "narration"):
+                    utts = grsa.embed_utterances(
+                        0, fragment_type, projection=True,
+                        log_dir=log_dir, data_dir=data_dir)
+                    if len(utts) != n_utts // 2 or not all(
+                            np.isfinite(u.embedding_1).all()
+                            and np.isfinite(u.embedding_2).all()
+                            for u in utts):
+                        raise AssertionError("embed_utterances")
+        if "grsa.unpairwise" in run:
+            with step("grsa.unpairwise", "results_unpairwise"):
+                grsa.unpairwise(0, n_samples=5, log_dir=log_dir,
+                                data_dir=data_dir, results_dir=results7)
+        if "stats.main" in run:
+            with step("stats.main"):
+                stats.main(pairwise_csv, results7)
+        if embedder is not None:
+            for name, fn in (
+                    ("grsa.word_type", lambda: grsa.word_type(
+                        embedder, results7, data_dir)),
+                    ("grsa.vanilla_rsa",
+                     lambda: grsa.vanilla_rsa(embedder)),
+                    ("grsa.probe", lambda: grsa.probe(embedder))):
+                if name in run:
+                    with step(name):
+                        table = fn()
+                    print(f"results: {name}: {table.to_dict('records')}")
+        for name, fn in (("duration_effect", evaluation.duration_effect),
+                         ("duration_effect_scramble",
+                          evaluation.duration_effect_scramble)):
+            if name in run:
+                with step(name, f"results_{name}"):
+                    fn(log_dir, results7, conditions)
+                out = torch.load(os.path.join(results7, f"{name}.pt"),
+                                 weights_only=False)
+                for r in out:
+                    if not (len(r["success"]) == 2 and all(
+                            s.shape == r["duration"].shape
+                            and np.isfinite(s).all()
+                            for s in r["success"])):
+                        raise AssertionError(f"{name} {r.keys()}")
+                print(f"results: {name}: "
+                      + "; ".join(f"{r['fragment_type']} "
+                                  f"{r['duration'].shape[0]} targets, "
+                                  f"mean success "
+                                  f"{[float(s.mean()) for s in r['success']]}"
+                                  for r in out))
+        if "test_run" in run:
+            with step("test_run", "results_test_run"):
+                evaluation.test_run(log_dir, results, n_samples=EVAL_SAMPLES,
+                                    conditions_path=conditions)
+        if "merge_scores" in run:
+            with step("merge_scores"):
+                evaluation.merge_scores(None, results)
+        for name, fn in (
+                ("format_tables",
+                 lambda: evaluation.format_tables(results)),
+                ("test_table", lambda: evaluation.test_table(results)),
+                ("plots", lambda: (
+                    evaluation.full_run([1, 2], log_dir, results,
+                                        EVAL_SAMPLES,
+                                        conditions_path=conditions),
+                    plotting.plots(conditions, results))),
+                ("recall_at_1_to_n_plot",
+                 lambda: plotting.recall_at_1_to_n_plot(results)),
+                ("duration_effect_plot", lambda: (
+                    plotting.duration_effect_plot(conditions, results7),
+                    plotting.duration_effect_plot(conditions, results7,
+                                                  scramble=True))),
+                ("targeted_eval --plot", lambda: targeted_eval.main([
+                    "--plot", "--versions", "0", "--results_dir",
+                    os.path.join(results, "targeted"), "--data_dir",
+                    data_dir, "--conditions", conditions])),
+                ("targeted_eval.create_results_table",
+                 lambda: targeted_eval.create_results_table(
+                     os.path.join(results, "targeted"), conditions))):
+            if name in run:
+                with step(name, "results_plots" if name == "plots"
+                          else None):
+                    fn()
+    finally:
+        for u in undo:
+            u()
+    if record["plain"]:
+        raise AssertionError(f"plain versions on the card: {record['plain']}")
+    written = sorted(os.path.join(r, f) for d in (results, results7)
+                     for r, _, fs in os.walk(d) for f in fs
+                     if f.endswith((".csv", ".tex", ".pdf", ".png")))
+    empty = [p for p in written if not os.path.getsize(p)]
+    if empty:
+        raise AssertionError(f"empty files {empty}")
+    print(f"results: files written "
+          f"{[os.path.relpath(p, root) for p in written]}")
+    if os.path.exists(os.path.join(results, "scores.csv")):
+        with open(os.path.join(results, "scores.csv")) as f:
+            table = list(csv.DictReader(f))
+        if len(table) != 4:
+            raise AssertionError(f"scores.csv rows {len(table)}")
+    t_values = sorted({k[1][1] for k in inputs})
+    launches = sum(c["attention_fwd"] for p, c in report["launches"].items()
+                   if p.startswith("results_"))
+    print(f"results: kernel 1 launches {launches} over "
+          f"{len(t_values)} distinct T ({t_values[0]}-{t_values[-1]}) "
+          f"in {len(inputs)} distinct shapes")
+    stats_out.update(kernel1_launches=launches, distinct_t=len(t_values),
+                     distinct_shapes=len(inputs),
+                     phase_s=time.perf_counter() - t_phase)
+    _hold_path_shapes(report, inputs, "results_shapes",
+                      kernels=("attention",), each=False)
+    report["results"] = stats_out
+    print(f"results: seconds per step {stats_out['steps_s']} ({card})")
+
+
 # ------------------------------------------------------------------ phase 5
 def card_vs_cpu() -> None:
     import numpy as np
@@ -1942,7 +2452,16 @@ def card_vs_cpu_train() -> None:
 
 # ------------------------------------------------------------------ main
 def main() -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description="smoke run on one card")
+    parser.add_argument("--phases", nargs="+", metavar="PHASE",
+                        choices=("2", "3", "4a", "4b", "4c", "4d", "6", "7",
+                                 "5"),
+                        help="run only these phases (default: all)")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1963,28 +2482,45 @@ def main() -> int:
     for name, log in build.build_log.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
 
-    phases = ((2, lambda: (print_kernel_resources(),
-                           check_attention(report),
-                           check_attention_bwd(report),
-                           check_loss(report))),
-              (3, lambda: run_slice(report, card)),
+    phases = (("2", lambda: (print_kernel_resources(),
+                             check_attention(report),
+                             check_attention_bwd(report),
+                             check_loss(report))),
+              ("3", lambda: run_slice(report, card)),
               ("4a", lambda: run_training(report, card, True)),
               ("4b", lambda: run_training(report, card, False)),
               ("4c", lambda: run_trainer(report, card)),
               ("4d", lambda: run_pipeline(report, card, root)),
-              (6, lambda: run_evaluation(report, card, root)),
-              (5, lambda: (card_vs_cpu(), card_vs_cpu_train())))
-    report: dict = {}
+              ("6", lambda: run_evaluation(report, card, root)),
+              ("7", lambda: run_results(report, card, root)),
+              ("5", lambda: (card_vs_cpu(), card_vs_cpu_train())))
+    chosen = set(args.phases or [p for p, _ in phases])
+    if "7" in chosen and "6" not in chosen:
+        print("phase 7 reads phase 6's run directories and score files: "
+              "phase 6 runs too")
+        chosen.add("6")
+    report: dict = {"launches": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_data_")  # 4d's tree, for 6
     try:
         for phase, fn in phases:
+            if phase not in chosen:
+                continue
             t0 = time.perf_counter()
             fn()
             print(f"phase {phase} done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"chip_smoke: every phase done in "
+    print(f"chip_smoke: phases {sorted(chosen)} done in "
           f"{time.perf_counter() - T_START:.1f} s in all")
+    if len(chosen) < len(phases):  # a part: its records, no summary
+        print(json.dumps({k: v for k, v in report.items()
+                          if k in ("launches", "evaluation", "results")},
+                         default=str))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     paths = report["launches"]  # path -> kernel -> launches
     kernels = []
@@ -2014,6 +2550,7 @@ def main() -> int:
                       "trainer": report["trainer"],
                       "pipeline": report["pipeline"],
                       "evaluation": report["evaluation"],
+                      "results": report["results"],
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

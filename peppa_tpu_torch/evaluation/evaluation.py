@@ -21,23 +21,34 @@ reference's read them.  The bootstrap's subsets are drawn from a torch
 generator seeded `EVAL_SEED` (they cannot match `jax.random`'s), the
 triplet rounds from Python's `random.Random(EVAL_SEED)` (the JAX package's
 own draws).  Scrambled windows are shuffled by an unseeded generator in
-both packages.  The tables and plots (`score_means`, `format_tables`,
-`test_table`, `data_statistics`, `duration_effect*`) need pandas and
-matplotlib and are not ported yet.
+both packages.
+
+From the result files to the paper's tables (host work; pandas imported
+inside the functions): `merge_scores` (full_scores_v*.pt ->
+full_scores.pt), `score_means`, `format_tables` (scores.csv and
+scores_{dialog,narration}.tex), `test_table` (scores_test.tex) and
+`data_statistics` (data_statistics.{csv,tex}).  On the device:
+`duration_effect` and `duration_effect_scramble` re-encode the val lines
+of several runs (`TripletScorer._encode` through `make_predict`) and score
+them on the same `random.Random(EVAL_SEED)` rounds
+(`comparative_score_triplets`) into results/duration_effect*.pt.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from copy import deepcopy
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import yaml
 
+from peppa_tpu_torch.data import dataset as data
 from peppa_tpu_torch.data.dataset import PeppaPigDataset, grouped_batches
-from peppa_tpu_torch.evaluation.triplet import TripletScorer
+from peppa_tpu_torch.evaluation.triplet import (TripletScorer,
+                                                comparative_score_triplets)
 from peppa_tpu_torch.ops.metrics import resampled_recall_at_1_to_n
 from peppa_tpu_torch.utils.device import resolve_device
 
@@ -185,8 +196,9 @@ def _torch_save(obj, path: str) -> None:
     torch.save(obj, path)
 
 
-def _versions_of(conditions_key: Optional[str] = None) -> List:
-    with open("conditions.yaml") as f:
+def _versions_of(conditions_key: Optional[str] = None,
+                 conditions_path: str = "conditions.yaml") -> List:
+    with open(conditions_path) as f:
         conditions = yaml.safe_load(f)
     if conditions_key is not None:
         return list(conditions[conditions_key])
@@ -213,11 +225,12 @@ def _score_version(version, log_dir: str, split: Sequence[str],
 def full_run(versions: Optional[Sequence] = None,
              log_dir: str = "lightning_logs", results_dir: str = "results",
              n_samples: int = 500,
-             device: Optional[Union[str, torch.device]] = None) -> None:
+             device: Optional[Union[str, torch.device]] = None,
+             conditions_path: str = "conditions.yaml") -> None:
     """Score each run version on val into results/full_scores_v{N}.pt
     (all of conditions.yaml's versions when none are given)."""
     if versions is None:
-        versions = _versions_of()
+        versions = _versions_of(conditions_path=conditions_path)
     for version in versions:
         rows = _score_version(version, log_dir, ["val"], n_samples, device)
         _torch_save(add_condition(rows),
@@ -226,11 +239,220 @@ def full_run(versions: Optional[Sequence] = None,
 
 def test_run(log_dir: str = "lightning_logs", results_dir: str = "results",
              n_samples: int = 500,
-             device: Optional[Union[str, torch.device]] = None) -> None:
+             device: Optional[Union[str, torch.device]] = None,
+             conditions_path: str = "conditions.yaml") -> None:
     """Score the base condition's versions on test into
     results/full_test_scores.pt."""
     rows = []
-    for version in _versions_of("base"):
+    for version in _versions_of("base", conditions_path):
         rows += _score_version(version, log_dir, ["test"], n_samples, device)
     _torch_save(add_condition(rows),
                 os.path.join(results_dir, "full_test_scores.pt"))
+
+
+# ------------------------------------------------------------------- tables
+def score_means(rows: List[Dict]):
+    """The bootstrap arrays as means and standard deviations, one
+    DataFrame row per result row (reference evaluation.py:55-66)."""
+    import pandas as pd
+
+    out = []
+    for item in rows:
+        row = deepcopy(item)
+        acc = np.asarray(row["triplet_acc"])
+        row["triplet_acc_std"] = float(acc.std())
+        row["triplet_acc"] = float(acc.mean())
+        for k in ("recall_at_10_fixed", "recall_at_10_jitter"):
+            r = np.asarray(row[k])
+            row[k + "_std"] = float(r.mean(axis=1).std())
+            row[k] = float(r.mean(axis=1).mean())
+        out.append(row)
+    return pd.DataFrame.from_records(out)
+
+
+def pretraining(row) -> str:
+    return {(True, True): "AV", (True, False): "A",
+            (False, True): "V", (False, False): "None"}[
+                row["audio_pretrained"], row["video_pretrained"]]
+
+
+def merge_scores(versions: Optional[Sequence] = None,
+                 results_dir: str = "results") -> None:
+    """full_scores_v{N}.pt (the given versions, else every one in
+    `results_dir`, sorted by name) concatenated into full_scores.pt."""
+    import glob
+
+    if versions is not None:
+        paths = [os.path.join(results_dir, f"full_scores_v{v}.pt")
+                 for v in versions]
+    else:
+        paths = sorted(glob.glob(os.path.join(results_dir,
+                                              "full_scores_v*.pt")))
+    rows = []
+    for p in paths:
+        rows.extend(torch.load(p, weights_only=False))
+    _torch_save(rows, os.path.join(results_dir, "full_scores.pt"))
+
+
+def format_tables(results_dir: str = "results") -> None:
+    """results/full_scores.pt -> scores.csv and
+    scores_{dialog,narration}.tex (reference evaluation.py:202-226)."""
+    import pandas as pd
+
+    rows = torch.load(os.path.join(results_dir, "full_scores.pt"),
+                      weights_only=False)
+    rows = add_condition(rows)
+    table_all = score_means(rows)
+    csv_cols = ["fragment_type", "triplet_acc", "triplet_acc_std",
+                "recall_at_10_fixed", "recall_at_10_fixed_std",
+                "recall_at_10_jitter", "recall_at_10_jitter_std", "version",
+                "checkpoint_path", "hparams_path", "jitter", "static",
+                "audio_pretrained", "video_pretrained", "resolution"]
+    (table_all[[c for c in csv_cols if c in table_all.columns]]
+     .to_csv(os.path.join(results_dir, "scores.csv"), index=False))
+    for fragment_type in ("dialog", "narration"):
+        table = table_all.query(f"fragment_type=='{fragment_type}'").copy()
+        table["pretraining"] = pd.Categorical(
+            table.apply(pretraining, axis=1),
+            categories=["AV", "A", "V", "None"])
+        formatted = (table[["version", "static", "jitter", "pretraining",
+                            "resolution", "recall_at_10_fixed",
+                            "recall_at_10_jitter", "triplet_acc"]]
+                     .sort_values(by=["static", "jitter", "pretraining",
+                                      "resolution"])
+                     .replace(True, "Yes").replace(False, "")
+                     .rename(columns=dict(
+                         version="ID", static="Static", jitter="Jitter",
+                         pretraining="Pretraining", resolution="Resolution",
+                         recall_at_10_fixed="R@10 (fixed)",
+                         recall_at_10_jitter="R@10 (jitter)",
+                         triplet_acc="Triplet Acc")))
+        path = os.path.join(results_dir, f"scores_{fragment_type}.tex")
+        formatted.to_latex(buf=path, index=False, float_format="%.3f")
+
+
+def test_table(results_dir: str = "results") -> None:
+    """results/full_test_scores.pt -> scores_test.tex (reference
+    evaluation.py:278-291)."""
+    import pandas as pd
+
+    rows = torch.load(os.path.join(results_dir, "full_test_scores.pt"),
+                      weights_only=False)
+    rows = [r for r in rows if not r["scrambled_video"]]
+    rf = np.concatenate([np.asarray(r["recall_at_10_fixed"]).mean(axis=1)
+                         for r in rows])
+    rj = np.concatenate([np.asarray(r["recall_at_10_jitter"]).mean(axis=1)
+                         for r in rows])
+    acc = np.concatenate([np.asarray(r["triplet_acc"]) for r in rows])
+    pd.DataFrame.from_records([{
+        "R@10 (fixed)": f"{rf.mean():0.2f} ± {rf.std():0.2f}",
+        "R@10 (jitter)": f"{rj.mean():0.2f} ± {rj.std():0.2f}",
+        "Triplet Acc": f"{acc.mean():0.2f} ± {acc.std():0.2f}",
+    }]).to_latex(buf=os.path.join(results_dir, "scores_test.tex"), index=False)
+
+
+def data_statistics(results_dir: str = "results", data_dir: str = "data",
+                    target_size=(180, 100), durations_fn=None) -> None:
+    """Clips and hours per split and fragment type into
+    data_statistics.{csv,tex} (reference evaluation.py:23-39).
+    `durations_fn(split, fragment_type)` -> the segments' durations
+    replaces the scan of the episode tree."""
+    import pandas as pd
+
+    if durations_fn is None:
+        def durations_fn(split, fragment_type):
+            ds = data.PeppaPigIterableDataset(
+                target_size=target_size, split=[split],
+                fragment_type=fragment_type, duration=2.3, data_dir=data_dir)
+            return np.array([s.duration for s in ds._raw_segments()])
+
+    rows = []
+    for split in ("train", "val", "test"):
+        for fragment_type in ("dialog", "narration"):
+            if data.SPLIT_SPEC[fragment_type][split] is None:
+                continue
+            durations = np.asarray(durations_fn(split, fragment_type))
+            rows.append({"Split": split, "Type": fragment_type,
+                         "Size (h)": durations.sum() / 3600,
+                         "# Clips": len(durations)})
+    df = pd.DataFrame.from_records(rows)
+    os.makedirs(results_dir, exist_ok=True)
+    df.to_csv(os.path.join(results_dir, "data_statistics.csv"),
+              index=False, header=True)
+    df.to_latex(os.path.join(results_dir, "data_statistics.tex"),
+                index=False, header=True, float_format="%.2f")
+
+
+# ----------------------------------------------------------- duration effect
+def _comparative(log_dir: str, model_ids: Sequence, scrambles: Sequence[bool],
+                 device) -> List[Dict]:
+    """Each fragment type's val lines encoded by every model (loaded in
+    `model_ids`' order) for each of `scrambles`, scored on one set of
+    rounds: the rows of duration_effect*.pt."""
+    from peppa_tpu_torch.training.checkpoint import load_best_model
+
+    encoded = []
+    for model_id in model_ids:
+        logging.info("Loading version %s", model_id)
+        model, config, _ = load_best_model(
+            os.path.join(log_dir, f"version_{model_id}"), device=device)
+        encoded.append((make_predict(model, device), config))
+    out = []
+    for fragment_type in ("dialog", "narration"):
+        videos, audios, durs = [], [], None
+        for scrambled in scrambles:
+            for predict_fn, config in encoded:
+                scorer = TripletScorer(
+                    fragment_type=fragment_type, split=["val"],
+                    target_size=config.data.target_size,
+                    audio_sample_rate=config.data.audio_sample_rate,
+                    scrambled_video=scrambled,
+                    data_dir=config.data.data_dir)
+                scorer._encode(predict_fn, BATCH_SIZE)
+                videos.append(scorer._video)
+                audios.append(scorer._audio)
+                durs = scorer._duration
+        result = comparative_score_triplets(videos, audios, durs,
+                                            n_samples=500, seed=EVAL_SEED)
+        result["fragment_type"] = fragment_type
+        out.append(result)
+    return out
+
+
+def duration_effect(log_dir: str = "lightning_logs",
+                    results_dir: str = "results",
+                    conditions_path: str = "conditions.yaml",
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> None:
+    """The pretraining_a and static runs of conditions.yaml on the same
+    triplet rounds of each fragment type's val lines: the continuous
+    similarity differences of each run and the target durations, into
+    results/duration_effect.pt (reference evaluation.py:293-314)."""
+    device = resolve_device(device)
+    with open(conditions_path) as f:
+        conditions = yaml.safe_load(f)
+    model_ids = conditions["pretraining_a"] + conditions["static"]
+    out = _comparative(log_dir, model_ids, (False,), device)
+    for result in out:
+        result["model_ids"] = model_ids
+    _torch_save(out, os.path.join(results_dir, "duration_effect.pt"))
+
+
+def duration_effect_scramble(log_dir: str = "lightning_logs",
+                             results_dir: str = "results",
+                             conditions_path: str = "conditions.yaml",
+                             device: Optional[Union[str, torch.device]] = None
+                             ) -> None:
+    """The base runs of conditions.yaml, each scored on the same rounds
+    with intact and with frame-scrambled video, into
+    results/duration_effect_scramble.pt (reference evaluation.py:317-337)."""
+    device = resolve_device(device)
+    with open(conditions_path) as f:
+        conditions = yaml.safe_load(f)
+    model_ids = conditions["base"]
+    out = _comparative(log_dir, model_ids, (False, True), device)
+    for result in out:
+        result["model_ids"] = model_ids + model_ids
+        result["scrambled_video"] = ([False] * len(model_ids)
+                                     + [True] * len(model_ids))
+    _torch_save(out, os.path.join(results_dir, "duration_effect_scramble.pt"))

@@ -50,7 +50,7 @@ class PeppaPig(nn.Module):
         self.audio_encoder = Wav2Vec2Encoder(
             full=config.audio.full, pooling=config.audio.pooling,
             project=config.audio.project, cfg=Wav2Vec2Config(**audio_kw),
-            dtype=dtype)
+            dtype=dtype, use_pallas=config.tpu.use_pallas)
         bn_dtype = (getattr(torch, config.tpu.bn_dtype)
                     if config.tpu.bn_dtype else None)
         if config.video.static:

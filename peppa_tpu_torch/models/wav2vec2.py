@@ -20,11 +20,13 @@ after `ffn_out`, on the attention probabilities) and layer-drop (one
 Bernoulli(1 - layer_drop) per layer and forward; the layer runs and
 `torch.where` selects, as `jnp.where` does), all drawn from the one
 `torch.Generator` the caller passes.  Attention goes through the attention
-kernels (`ops/cuda/attention.py`, forward and backward) when the forward is
-deterministic or `attention_dropout` is 0; otherwise through the JAX
-module's own XLA route (scores, -inf mask, softmax, dropout on the
-probabilities, PV), which the dropout mask needs.  The config chooses the
-route.
+kernels (`ops/cuda/attention.py`, forward and backward) when `use_pallas`
+(the config's `tpu.use_pallas`) is set and the forward is deterministic or
+`attention_dropout` is 0; otherwise through the JAX module's own XLA route
+(scores, -inf mask, softmax, PV; dropout on the probabilities in
+training), which the dropout mask needs.  The config chooses the route.
+The JAX package also takes its XLA route past T = 2048, its TPU kernel's
+VMEM bound; the card's kernel has no such bound, so the port does not.
 
 Taps: 'conv' (B, T, 512), 'context' (B, T, 768), 'logits' (B, T, 28).
 """
@@ -137,15 +139,17 @@ class ConvPositionalEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention: the attention kernels when deterministic
-    or without attention dropout, else the plain route with dropout on the
-    probabilities (module doc)."""
+    """Multi-head self-attention: the attention kernels under `use_pallas`
+    when deterministic or without attention dropout, else the plain route,
+    with dropout on the probabilities in training (module doc)."""
 
-    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
+                 use_pallas: bool = True):
         super().__init__()
         d = cfg.embed_dim
         self.heads = cfg.num_heads
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.q_proj = Dense(d, d, dtype)
         self.k_proj = Dense(d, d, dtype)
         self.v_proj = Dense(d, d, dtype)
@@ -161,7 +165,8 @@ class SelfAttention(nn.Module):
         k = self.k_proj(x).view(b, t, self.heads, hd)
         v = self.v_proj(x).view(b, t, self.heads, hd)
         scale = hd ** -0.5
-        if deterministic or self.attn_dropout.rate == 0.0:
+        if self.use_pallas and (deterministic
+                                or self.attn_dropout.rate == 0.0):
             out = mha_attention(q, k, v, lengths=lengths, scale=scale)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(),
@@ -171,7 +176,7 @@ class SelfAttention(nn.Module):
                 logits = logits.masked_fill(~mask[:, None, None, :],
                                             -math.inf)
             probs = torch.softmax(logits, dim=-1).to(self.dtype)
-            probs = self.attn_dropout(probs, False, generator)
+            probs = self.attn_dropout(probs, deterministic, generator)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.out_proj(out.reshape(b, t, d))
 
@@ -179,9 +184,10 @@ class SelfAttention(nn.Module):
 class TransformerLayer(nn.Module):
     """Post-norm transformer layer (wav2vec2-base: layer_norm_first=False)."""
 
-    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
+                 use_pallas: bool = True):
         super().__init__()
-        self.attention = SelfAttention(cfg, dtype)
+        self.attention = SelfAttention(cfg, dtype, use_pallas)
         self.ln1 = LayerNorm(cfg.embed_dim)
         self.ffn_in = Dense(cfg.embed_dim, cfg.ffn_dim, dtype)
         self.ffn_out = Dense(cfg.ffn_dim, cfg.embed_dim, dtype)
@@ -210,7 +216,8 @@ class Wav2Vec2(nn.Module):
     """
 
     def __init__(self, cfg: Wav2Vec2Config = Wav2Vec2Config(),
-                 dtype: torch.dtype = torch.float32, conv_only: bool = False):
+                 dtype: torch.dtype = torch.float32, conv_only: bool = False,
+                 use_pallas: bool = True):
         super().__init__()
         self.cfg = cfg
         self.feature_extractor = ConvFeatureExtractor(dtype)
@@ -223,7 +230,8 @@ class Wav2Vec2(nn.Module):
         self.encoder_ln = LayerNorm(cfg.embed_dim)
         self.dropout = Dropout(cfg.dropout)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer{i}", TransformerLayer(cfg, dtype))
+            self.add_module(f"layer{i}",
+                            TransformerLayer(cfg, dtype, use_pallas))
         self.aux = Dense(cfg.embed_dim, cfg.num_out, dtype)
 
     def forward(self, waveform: torch.Tensor,
@@ -274,10 +282,11 @@ class Wav2Vec2Encoder(nn.Module):
     def __init__(self, full: bool = True, pooling: str = "attention",
                  project: bool = True,
                  cfg: Wav2Vec2Config = Wav2Vec2Config(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = True):
         super().__init__()
         self.full = full
-        self.wav2vec2 = Wav2Vec2(cfg, dtype, conv_only=not full)
+        self.wav2vec2 = Wav2Vec2(cfg, dtype, conv_only=not full,
+                                 use_pallas=use_pallas)
         n_features = cfg.num_out if full else CONV_LAYERS[-1][0]
         self.pool = make_audio_pool(pooling, n_features)
         self.project = Dense(n_features, 512, dtype) if project else None

@@ -532,3 +532,46 @@ def test_native_path_makes_no_pageable_copy(cuda, tmp_path, monkeypatch):
                                for f in fields(ClipBatch)})
     list(Prefetcher(iter([numpy_batch]), cuda, depth=0))
     assert len(pins) == 6 and np.prod(pins[0]) > 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [2049, 2300, 3001])
+def test_attention_kernel_past_the_tpu_bound(cuda, dtype, tol, t):
+    """Past T = 2048, where the JAX package leaves its TPU kernel for its
+    XLA route (`MAX_T_PAD`, VMEM), the card's kernel still runs and holds
+    against its plain version: the port keeps no switch on T (ROADMAP C)."""
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v = (torch.randn(2, t, 12, 64, generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    lens = torch.tensor([t, t // 3], device=cuda)
+    for lengths in (None, lens):
+        before = mha_attention.launches
+        got = mha_attention(q, k, v, lengths)
+        assert mha_attention.launches == before + 1
+        want = mha_attention_plain(q, k, v, lengths)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_use_pallas_false_launches_no_attention_kernel(cuda):
+    """Under `tpu.use_pallas: false` the audio tower on the card takes the
+    plain route: kernel 1's counter stays at 0; with the flag on it counts
+    one launch per layer."""
+    from peppa_tpu_torch.config import Config
+    from peppa_tpu_torch.models.dual_encoder import init_model
+
+    x = torch.randn(2, 16000, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for flag in (False, True):
+        cfg = Config.from_dict({"audio": {"num_layers": 2},
+                                "training": {"trainer_args":
+                                             {"precision": 32}},
+                                "tpu": {"use_pallas": flag}})
+        model = init_model(cfg, seed=0, device=cuda)
+        before = mha_attention.launches
+        with torch.inference_mode():
+            out[flag] = model.encode_audio(x.to(cuda))
+        assert mha_attention.launches - before == (2 if flag else 0)
+    torch.testing.assert_close(out[False], out[True], rtol=1e-4, atol=1e-4)

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no flax, no msgpack, nothing of
-`peppa_tpu`, and no pandas or cv2 at import (the card's machine has
-neither); and its entry points run on the card unless the caller asks for
-the CPU."""
+`peppa_tpu`, and no pandas or cv2 at import (the card's machine has both,
+but the port imports them, and the analysis layer's scipy, sklearn,
+matplotlib and Levenshtein, only inside the functions that use them); and
+its entry points run on the card unless the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -36,6 +37,33 @@ def test_port_imports_no_jax_and_nothing_of_peppa_tpu():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+_HOST_PROBE = r"""
+import importlib, pkgutil, sys
+blocked = ("pandas", "scipy", "sklearn", "matplotlib", "Levenshtein",
+           "sentence_transformers", "spacy", "jinja2")
+for name in blocked:
+    sys.modules[name] = None  # any import of these now fails
+import peppa_tpu_torch
+for m in pkgutil.walk_packages(peppa_tpu_torch.__path__, "peppa_tpu_torch."):
+    importlib.import_module(m.name)
+from peppa_tpu_torch.analysis import grsa, ols, plotting, stats  # noqa
+print(sorted(b for b in blocked if sys.modules.get(b) is not None))
+"""
+
+
+def test_analysis_host_packages_are_imported_inside_functions():
+    """The results path imports its host packages (pandas, scipy, sklearn,
+    matplotlib, Levenshtein, sentence-transformers, spaCy, jinja2) only in
+    the functions that use them: every port module imports with all of
+    them blocked (the card's machine lacks some)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _HOST_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
@@ -76,6 +104,37 @@ def test_evaluation_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                              "--log_dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+RESULTS_ENTRY_POINTS = {
+    "duration_effect": lambda ev, g, d, kw: ev.duration_effect(d),
+    "duration_effect_scramble":
+        lambda ev, g, d, kw: ev.duration_effect_scramble(d),
+    "grsa.Embedder.embed": lambda ev, g, d, kw: g.Embedder(0, **kw).embed(),
+    "grsa.pairwise": lambda ev, g, d, kw: g.pairwise(0, **kw),
+    "grsa.embed_utterances": lambda ev, g, d, kw: g.embed_utterances(0, **kw),
+    "grsa.unpairwise": lambda ev, g, d, kw: g.unpairwise(0, **kw),
+    "grsa.main": lambda ev, g, d, kw: g.main([0], **kw),
+    "grsa CLI": lambda ev, g, d, kw: g.cli(["--log_dir", kw["log_dir"],
+                                            "--data_dir", d]),
+}
+
+
+@pytest.mark.parametrize("name", list(RESULTS_ENTRY_POINTS))
+def test_results_entry_points_raise_without_cuda(monkeypatch, tmp_path,
+                                                 name):
+    """The results path's entry points that run a model default to the
+    card and raise without it, before they read anything (`tmp_path`
+    holds no conditions.yaml, run directory or realign tree)."""
+    from peppa_tpu_torch.analysis import grsa
+    from peppa_tpu_torch.evaluation import evaluation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    kw = dict(log_dir=str(tmp_path / "runs"), data_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RESULTS_ENTRY_POINTS[name](evaluation, grsa, str(tmp_path), kw)
+    assert os.listdir(tmp_path) == []
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
