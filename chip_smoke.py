@@ -94,11 +94,31 @@ Phases:
      `plots`, `recall_at_1_to_n_plot`, `duration_effect_plot`, the
      targeted CLI's `--plot`); each step's seconds; kernel 1 against its
      plain version on every shape the phase gave it;
+  8. the corpus-preparation path on raw episodes it writes under $TMPDIR
+     in the reference's `data/in` layout (narration val 1-4 and dialog val
+     197-200, 60 s each, 240x136 at 25 fps, mpeg4 + 44.1 kHz PCM .avi, 12
+     subtitle lines each of a template grammar): `PigData.prepare_data`
+     with `data.extract` (the 180x100 tree), `realign` of every val line
+     with the port's wav2vec2-base CTC model (float32, seeded, full width
+     and depth) on the card from a pool of one thread per core (kernel 1:
+     12 launches per utterance, with key lengths, at T = 99, 199, 399,
+     799; kernel 3 none; no plain version on the card), `extract_realines`,
+     the eval sets through `python -m peppa_tpu_torch.generate_eval_sets`,
+     `targeted_eval --run` on them with a seeded base run directory, and
+     human_check's exports whose host packages are installed (PREP_STEPS);
+     then the CTC log-probs of one utterance in each of the 2, 4 and 8 s
+     buckets on the card against the CPU (float32, 1e-4) with equal
+     alignments, the native DP against the Python DP bit for bit, realign
+     with 1 and 8 threads writing the same bytes, kernel 1 against its
+     plain version on every shape of the phase, and kernel 1 in float32
+     timed at the aligner's shapes (B=1, one key short of T) with its plain
+     version, SDPA and its bound;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
 then one JSON line of per-kernel numbers, one of the serving, training,
-evaluation and results metrics, the card's name and power limit, and the
+evaluation, results and preparation metrics, the card's name and power
+limit, and the
 last line `{"ok": true, "device": {...}}`.  With `--phases`, only those
 phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 7 brings phase 6), and the summary is their records.
@@ -106,7 +126,7 @@ phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 Launch counts are set to 0 just before each main path (3, 4a, 4b, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
 the battery, the targeted path and the towers of 6, each model step of
-7) and read just after it.
+7, the realign and the targeted path of 8) and read just after it.
 
 Any failed check raises, and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -2365,6 +2385,578 @@ def run_results(report: dict, card: str, root: str) -> None:
     print(f"results: seconds per step {stats_out['steps_s']} ({card})")
 
 
+# ------------------------------------------------------------------ phase 8
+# the raw episodes: narration val 1-4 and dialog val 197-200, 60 s each,
+# 25 fps at 240x136 (above the 180x100 target), 44.1 kHz PCM in an .avi
+PREP_EPISODES = {"narration": (1, 2, 3, 4), "dialog": (197, 198, 199, 200)}
+PREP_SECONDS, PREP_FPS, PREP_SIZE, PREP_RATE = 60.0, 25, (240, 136), 44100
+PREP_PARTS = 3  # parts per episode, 4 lines each
+# a subtitle line's length (s): one short (the 2 s bucket with its 1 s of
+# margins), ten of 1.5-3.5 s (4 and 8 s), one long (16 s)
+PREP_LINES = ((0.6, 0.9),) + ((1.5, 3.5),) * 5 + ((9.0, 14.0),) \
+    + ((1.5, 3.5),) * 5
+# the lines' template "{subject} {verb} in the {adjective} puddles": one
+# word pair per tag (NOUN, VERB, ADJ), each word in a sixth of the
+# narration lines (dealt from a shuffled deck), the rest words the tagger
+# puts under no tag of the eval sets (X, AUX, ADV), so that each set
+# holds about eight minimal pairs
+PREP_SLOTS = (("peppa", "george", "she", "she", "he", "he"),
+              ("jumps", "runs", "is", "is", "is", "is"),
+              ("big", "little", "really", "really", "very", "very"))
+PREP_MIN_OCCURRENCES = 3  # generate's --min-occurrences (corpus: 10)
+ALIGN_LAYERS = 12  # the aligner's wav2vec2-base: kernel 1 per layer
+ALIGN_BUCKETS = (2.0, 4.0, 8.0, 16.0)
+ALIGN_T = (99, 199, 399, 799)  # the buckets' frames
+# human_check's export steps and the host packages each needs
+PREP_STEPS = (("human_check.export_triplets", ("cv2",)),
+              ("human_check.export_targeted_word", ("cv2",)))
+
+
+def _stamp(t: float) -> str:
+    """H:MM:SS, or H:MM:SS.fff off a whole second."""
+    ms = int(round(t * 1000))
+    h, rest = divmod(ms, 3600_000)
+    m, rest = divmod(rest, 60_000)
+    s, frac = divmod(rest, 1000)
+    return f"{h}:{m:02d}:{s:02d}" + (f".{frac:03d}" if frac else "")
+
+
+def _write_raw_episodes(data_dir: str, rng) -> tuple:
+    """data/in in the reference's layout: the episode list CSV, one
+    annotation JSON per episode (its lines in its fragment's key, as
+    `subtitles` with a speaker on dialog lines and as word-level
+    `tokenized` spans; the other key empty), and the media as .avi
+    (cv2 mpeg4 + PCM16).  Returns the number of lines."""
+    import json
+
+    import numpy as np
+
+    from peppa_tpu_torch.data.avi import write_clip_avi
+
+    n_narration = len(PREP_EPISODES["narration"]) * len(PREP_LINES)
+    decks = [list(rng.permutation(slot * (n_narration // len(slot))))
+             for slot in PREP_SLOTS]
+    pick = lambda words: words[int(rng.integers(len(words)))]  # noqa: E731
+    ep_dir = os.path.join(data_dir, "in", "peppa", "episodes")
+    os.makedirs(ep_dir)
+    listing, n_lines = [], 0
+    w, h = PREP_SIZE
+    n_frames = int(PREP_SECONDS * PREP_FPS)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for fragment, numbers in PREP_EPISODES.items():
+        key = "narration" if fragment == "narration" else "context"
+        for epid in numbers:
+            title = f"Episode {epid}"
+            listing.append(f"{epid};'{title}';'mnt/ep_{epid}.avi'\n")
+            parts, t = [], 0.5
+            per_part = len(PREP_LINES) // PREP_PARTS
+            for p in range(PREP_PARTS):
+                subtitles, tokenized = [], []
+                for lo, hi in PREP_LINES[p * per_part:(p + 1) * per_part]:
+                    length = round(float(rng.uniform(lo, hi)), 2)
+                    subject, verb, adjective = (
+                        [str(deck.pop()) for deck in decks]
+                        if fragment == "narration"
+                        else map(pick, PREP_SLOTS))
+                    words = [subject, verb, "in", "the", adjective,
+                             "puddles"]
+                    sub = {"text": " ".join(words), "begin": _stamp(t),
+                           "end": _stamp(t + length)}
+                    if fragment == "dialog":
+                        sub["speaker"] = REALIGN_SPEAKERS[
+                            int(rng.integers(len(REALIGN_SPEAKERS)))]
+                    subtitles.append(sub)
+                    step = length / len(words)
+                    tokenized += [{"token": word,
+                                   "begin": _stamp(t + k * step),
+                                   "end": _stamp(t + (k + 1) * step)}
+                                  for k, word in enumerate(words)]
+                    t += length + 0.5
+                    n_lines += 1
+                empty = {"subtitles": [], "tokenized": []}
+                part = {"context": empty, "narration": empty}
+                part[key] = {"subtitles": subtitles, "tokenized": tokenized}
+                parts.append(part)
+            if t > PREP_SECONDS:
+                raise AssertionError(f"episode {epid}: lines end at {t} s")
+            with open(os.path.join(ep_dir, f"ep_{epid}.json"), "w") as f:
+                json.dump({"id": epid, "title": title,
+                           "narrator_splits": parts}, f)
+            # a colour ramp over time and a bar moving across the frame
+            video = np.empty((n_frames, h, w, 3), np.uint8)
+            for i in range(n_frames):
+                video[i] = (xx[..., None] + yy[..., None] // 2 + 3 * i
+                            + np.array([0, 85, 170])) % 256
+                bar = (4 * i) % w
+                video[i, :, bar:bar + 12] = 255
+            tt = np.arange(int(PREP_SECONDS * PREP_RATE)) / PREP_RATE
+            audio = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 400) * tt)
+                     + 0.05 * rng.standard_normal(len(tt))).astype(np.float32)
+            write_clip_avi(os.path.join(data_dir, "in", "peppa",
+                                        f"ep_{epid}.avi"),
+                           video, audio, fps=PREP_FPS, rate=PREP_RATE)
+    with open(os.path.join(data_dir, "in",
+                           "peppa_pig_dataset-video_list.csv"), "w") as f:
+        f.writelines(listing)
+    return n_lines
+
+
+def _aligner_variables():
+    """The aligner's wav2vec2-base (float32, full width and depth, the
+    28-d aux head) from seeded random weights, as the JAX-layout tree
+    `make_ctc_logits_fn` takes."""
+    import torch
+
+    from peppa_tpu_torch.models.convert import export_jax_variables
+    from peppa_tpu_torch.models.dual_encoder import _init_parameters
+    from peppa_tpu_torch.models.wav2vec2 import Wav2Vec2
+
+    model = Wav2Vec2()
+    _init_parameters(model, torch.Generator().manual_seed(8))
+    return export_jax_variables(model)
+
+
+def _bucket_utterances(data_dir: str) -> dict:
+    """One realigned wav per bucket (the first of each in file order):
+    bucket -> (wav path, its JSON)."""
+    import glob
+    import json
+    import wave
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(
+            data_dir, "out", "realign", "*", "ep_*", "*", "*.wav"))):
+        with wave.open(path) as w:
+            seconds = w.getnframes() / w.getframerate()
+        bucket = next(b for b in ALIGN_BUCKETS if seconds <= b)
+        if bucket not in out:
+            with open(path[:-4] + ".json") as f:
+                out[bucket] = (path, json.load(f))
+    if sorted(out) != list(ALIGN_BUCKETS):
+        raise AssertionError(f"utterances in buckets {sorted(out)}")
+    return out
+
+
+def _aligner_forward_ms(variables, data_dir: str) -> dict:
+    """The aligner's forward on the card (decode, pad, forward, log-softmax,
+    copy back), one utterance per bucket, alone: the median of 5 after 1,
+    host clock to the copy back.  bucket -> ms."""
+    import numpy as np
+
+    from peppa_tpu_torch.preprocess import forced_align as F
+
+    fn = F.make_ctc_logits_fn(variables=variables)
+    out = {}
+    for bucket, (path, _) in sorted(_bucket_utterances(data_dir).items()):
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            fn(path)
+            times.append(time.perf_counter() - t0)
+        out[bucket] = float(np.median(times[1:])) * 1e3
+    print(f"prep: the aligner's forward alone (decode to log-probs on the "
+          f"host), ms per bucket: {out}")
+    return out
+
+
+def _aligner_card_vs_cpu(variables, data_dir: str) -> dict:
+    """The aligner's log-probs of one utterance per bucket of 2, 4 and 8 s
+    in float32 (TF32 off) on the card and on the CPU, within EMB_TOL; the
+    alignments of the two equal (words, timings, the JSON but the
+    log-likelihood, which is compared within the frames' tolerance); the
+    native DP equal to `_ctc_align_python` bit for bit on the card's."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.preprocess import forced_align as F
+
+    utts = {b: u for b, u in _bucket_utterances(data_dir).items()
+            if b <= 8.0}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lps = {}
+        for device in (None, "cpu"):
+            fn = F.make_ctc_logits_fn(variables=variables, device=device)
+            lps[device] = {b: fn(path) for b, (path, _) in utts.items()}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    worst = 0.0
+    for bucket, (path, meta) in utts.items():
+        card, cpu = lps[None][bucket], lps["cpu"][bucket]
+        err = float(np.abs(card - cpu).max())
+        worst = max(worst, err)
+        print(f"prep: CTC log-probs {card.shape} ({bucket:g} s bucket), "
+              f"float32, card vs CPU: max|d|={err:.3g} (tol {EMB_TOL})")
+        if not err <= EMB_TOL:
+            raise AssertionError(f"log-probs card vs CPU: {err}")
+        transcript = meta["transcript"]
+        got = F.align_ctc(card, transcript, 320 / F.ALIGN_RATE)
+        want = F.align_ctc(cpu, transcript, 320 / F.ALIGN_RATE)
+        margin = got.get("log_likelihood", 0.0) - want.get(
+            "log_likelihood", 0.0)
+        lik_ok = abs(margin) <= EMB_TOL * card.shape[0]
+        got.pop("log_likelihood", None)
+        want.pop("log_likelihood", None)
+        if got != want or not lik_ok:
+            print(f"prep: alignments differ; the DP's path score card "
+                  f"minus CPU {margin:.6g}")
+            raise AssertionError(f"alignment of {path} card vs CPU")
+        tokens, _ = F.text_to_tokens(transcript)
+        native = F.ctc_forced_align(card, tokens)
+        plain = F._ctc_align_python(card, tokens)
+        if not (np.array_equal(native[0], plain[0])
+                and native[1] == plain[1]):
+            raise AssertionError(f"native DP vs Python DP on {path}")
+        print(f"prep: {len(got['words'])} words aligned alike from the "
+              f"card's and the CPU's log-probs (path scores {margin:.3g} "
+              f"apart); the native DP equals the Python DP bit for bit "
+              f"(score {native[1]!r})")
+    return {"max_abs": worst, "buckets": sorted(utts)}
+
+
+def _realign_threads_alike(variables, data_dir: str, root: str) -> int:
+    """realign of one narration episode with nthreads 1 and 8: the same
+    files, byte for byte; returns their number."""
+    from peppa_tpu_torch.preprocess import forced_align as F
+
+    one = os.path.join(root, "prep_one")
+    src = os.path.join(data_dir, "in")
+    dst = os.path.join(one, "in")
+    epid = PREP_EPISODES["narration"][0]
+    os.makedirs(os.path.join(dst, "peppa", "episodes"))
+    shutil.copy(os.path.join(src, "peppa", "episodes", f"ep_{epid}.json"),
+                os.path.join(dst, "peppa", "episodes"))
+    os.symlink(os.path.join(src, "peppa", f"ep_{epid}.avi"),
+               os.path.join(dst, "peppa", f"ep_{epid}.avi"))
+    with open(os.path.join(src, "peppa_pig_dataset-video_list.csv")) as f:
+        line = next(x for x in f if x.startswith(f"{epid};"))
+    with open(os.path.join(dst, "peppa_pig_dataset-video_list.csv"),
+              "w") as f:
+        f.write(line)
+    fn = F.make_ctc_logits_fn(variables=variables)
+    trees = []
+    for nthreads in (1, 8):
+        F.realign("narration", data_dir=one, ctc_logits_fn=fn,
+                  nthreads=nthreads)
+        out = os.path.join(one, "out", "realign")
+        files = {}
+        for r, _, names in os.walk(out):
+            for name in names:
+                with open(os.path.join(r, name), "rb") as f:
+                    files[os.path.relpath(os.path.join(r, name), out)] = \
+                        f.read()
+        trees.append(files)
+        shutil.rmtree(out)
+    if trees[0] != trees[1] or not trees[0]:
+        raise AssertionError("realign with 1 and 8 threads wrote "
+                             "different files")
+    print(f"prep: realign of episode {epid} with 1 and with 8 threads: "
+          f"{len(trees[0])} files (wav and JSON), byte for byte the same")
+    return len(trees[0])
+
+
+def aligner_attention_times(report: dict) -> list:
+    """Kernel 1 in float32 at the aligner's shapes (B=1, H=12, hd=64, T of
+    each bucket, key length T - 1) against its plain version and SDPA
+    (a boolean key mask), with the bound; rows added to the kernel's
+    `shapes`."""
+    import torch
+    import torch.nn.functional as F
+
+    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
+                                                    mha_attention_plain)
+
+    b, h, hd = 1, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for t in ALIGN_T:
+        q, k, v = (torch.randn(b, t, h, hd, generator=gen, device="cuda")
+                   for _ in range(3))
+        lengths = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
+        err = (mha_attention(q, k, v, lengths)
+               - mha_attention_plain(q, k, v, lengths)).abs().max().item()
+        if not err <= TOL_ATTN["float32"]:
+            raise AssertionError(f"aligner attention T={t}: {err}")
+        mask = (torch.arange(t, device="cuda") < lengths[:, None])[
+            :, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = time_ms(lambda: mha_attention(q, k, v, lengths))
+        plain_ms = time_ms(lambda: mha_attention_plain(q, k, v, lengths),
+                           iters=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        bms, by = bound(4 * b * t * h * hd * 4 + 4 * b,
+                        4 * b * h * t * (t - 1) * hd, "float32")
+        print(f"attention, aligner B={b} T={t} (length {t - 1}) float32: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); max|d|="
+              f"{err:.3g} (tol {TOL_ATTN['float32']})")
+        rows.append({"T": t, "B": b, "dtype": "float32", "length": t - 1,
+                     "path": "prep_realign", "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                     "max_abs_err": err})
+    held = report.setdefault("attention", {"max_abs_err": 0.0})
+    held.setdefault("shapes", []).extend(rows)
+    return rows
+
+
+def run_prep(report: dict, card: str, root: str) -> None:
+    """The corpus-preparation path (module doc, phase 8) on raw episodes it
+    writes: extraction through `PigData.prepare_data`, `realign` with the
+    port's wav2vec2 CTC model on the card (kernel 1 with key lengths, 12
+    launches per utterance), `extract_realines`, the eval sets through
+    `python -m peppa_tpu_torch.generate_eval_sets`, `targeted_eval --run`
+    on them, and human_check's exports; then the checks."""
+    import csv
+    import glob
+    import importlib.util
+    import logging
+
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch import generate_eval_sets, targeted_eval
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.data.datamodule import PigData
+    from peppa_tpu_torch.evaluation import eval_set_generation as G
+    from peppa_tpu_torch.evaluation import evaluation, human_check
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.preprocess import forced_align as F
+    from peppa_tpu_torch.preprocess.extract import extract_realines
+    from peppa_tpu_torch.training.checkpoint import save_checkpoint
+    from peppa_tpu_torch.training.state import TrainState
+
+    t_phase = time.perf_counter()
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in sorted({p for _, ps in PREP_STEPS for p in ps})}
+    steps = [name for name, needs in PREP_STEPS
+             if all(have[m] for m in needs)]
+    for name, needs in PREP_STEPS:
+        if name not in steps:
+            print(f"prep: {name} left out: "
+                  f"{', '.join(m for m in needs if not have[m])} not "
+                  "installed")
+    cfg = default_config()
+    data_dir = cfg.data.data_dir = os.path.join(root, "prep", "data")
+    cfg.data.extract, cfg.data.prepare = True, False
+    stats: dict = {"steps_s": {}}
+    rng = np.random.default_rng(8)
+    t0 = time.perf_counter()
+    stats["lines"] = _write_raw_episodes(data_dir, rng)
+    stats["steps_s"]["raw_episodes"] = time.perf_counter() - t0
+    print(f"prep: raw episodes {PREP_EPISODES} of {PREP_SECONDS:g} s "
+          f"({PREP_SIZE[0]}x{PREP_SIZE[1]}, {PREP_FPS} fps, mpeg4 + "
+          f"{PREP_RATE} Hz PCM .avi), {stats['lines']} subtitle lines, "
+          f"written in {stats['steps_s']['raw_episodes']:.1f} s")
+
+    # extraction, through the data module
+    t0 = time.perf_counter()
+    PigData(cfg).prepare_data()
+    stats["steps_s"]["extract"] = time.perf_counter() - t0
+    w, h = cfg.data.target_size
+    clips = glob.glob(os.path.join(data_dir, "out", f"{w}x{h}", "*", "*",
+                                   "*.npz"))
+    stats["clips"] = len(clips)
+    stats["clip_bytes"] = sum(os.path.getsize(p) for p in clips)
+    want_clips = sum(map(len, PREP_EPISODES.values())) * PREP_PARTS
+    print(f"prep: PigData.prepare_data (data.extract) in "
+          f"{stats['steps_s']['extract']:.1f} s: {len(clips)} clips at "
+          f"{w}x{h}, {stats['clip_bytes']} bytes")
+    if len(clips) != want_clips:
+        raise AssertionError(f"{len(clips)} clips, expected {want_clips}")
+    with np.load(clips[0]) as z:
+        if z["video"].shape[1:] != (h, w, 3) or not z["audio"].size:
+            raise AssertionError(f"clip {clips[0]}: {z['video'].shape}")
+
+    # realign on the card
+    variables = _aligner_variables()
+    # the forward's and the DP's seconds per call (from the pool's threads)
+    record = {"plain": 0, "forward_s": [], "dp_s": []}
+    inputs: dict = {}
+    modules = {"attention": attention, "loss": loss}
+    undo = [_patch(modules[m], name, _count_on_card(record))
+            for m, name in PLAIN_VERSIONS]
+    undo.append(_patch(wav2vec2, "mha_attention",
+                       _kept_inputs(inputs, "attention")))
+    undo.append(_patch(F, "ctc_forced_align", _timed(record, "dp_s")))
+    nthreads = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    F._native_align_lib()  # g++ of the DP, before the timed pool
+    stats["dp_build_s"] = time.perf_counter() - t0
+    try:
+        fn = _timed(record, "forward_s")(
+            F.make_ctc_logits_fn(variables=variables))
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fragment in ("narration", "dialog"):
+            F.realign(fragment, data_dir=data_dir, ctc_logits_fn=fn,
+                      nthreads=nthreads)
+        torch.cuda.synchronize()
+        stats["steps_s"]["realign"] = time.perf_counter() - t0
+        launches = _counts()
+        report["launches"]["prep_realign"] = launches
+        jsons = glob.glob(os.path.join(data_dir, "out", "realign", "*",
+                                       "ep_*", "*", "*.json"))
+        n_utts = len(jsons)
+        stats.update(utterances=n_utts, nthreads=nthreads,
+                     forward_s=sum(record["forward_s"]),
+                     dp_s=sum(record["dp_s"]))
+        print(f"prep: realign (narration and dialog, val) of {n_utts} "
+              f"utterances with {nthreads} threads in "
+              f"{stats['steps_s']['realign']:.2f} s; the forwards "
+              f"{stats['forward_s']:.2f} s and the DP "
+              f"{stats['dp_s']:.3f} s, summed over the threads (the DP's "
+              f"g++ build before, {stats['dp_build_s']:.1f} s); launches "
+              f"{launches} (the counters take a lock per increment); plain "
+              f"versions on the card {record['plain']}")
+        want = {"attention_fwd": ALIGN_LAYERS * n_utts, "attention_bwd": 0,
+                "triplet_loss": 0}
+        if n_utts != stats["lines"] or launches != want or record["plain"]:
+            raise AssertionError(f"realign: {n_utts} utterances of "
+                                 f"{stats['lines']} lines, launches "
+                                 f"{launches} != {want}, plain "
+                                 f"{record['plain']}")
+        t_seen = sorted({key[1][1] for key in inputs})
+        if t_seen != list(ALIGN_T) or not all(key[4] for key in inputs):
+            raise AssertionError(f"realign attention shapes {sorted(inputs)}")
+        words = []
+        for p in jsons:
+            with open(p) as f:
+                words += json.load(f)["words"]
+        stats["words_aligned"] = sum(w["case"] == "success" for w in words)
+        if stats["words_aligned"] != len(words):
+            raise AssertionError(f"{len(words) - stats['words_aligned']} "
+                                 "words not aligned")
+
+        # the clips of the aligned spans, and the eval sets from them
+        t0 = time.perf_counter()
+        extract_realines(cfg.data.target_size, data_dir=data_dir)
+        stats["steps_s"]["extract_realines"] = time.perf_counter() - t0
+        realines = glob.glob(os.path.join(data_dir, "out", "realign", "*",
+                                          "ep_*", "*", "*.npz"))
+        if len(realines) != n_utts:
+            raise AssertionError(f"{len(realines)} realigned clips")
+        eval_dir = os.path.join(data_dir, "eval")
+        tagger = G.make_tagger(G.default_annotations_dir(
+            os.path.join(data_dir, "out", "realign")))
+        t0 = time.perf_counter()
+        level = logging.getLogger().level  # the CLIs set INFO
+        try:
+            generate_eval_sets.main([
+                "--min-occurrences", str(PREP_MIN_OCCURRENCES),
+                "--realign-dir", os.path.join(data_dir, "out", "realign"),
+                "--eval-dir", eval_dir])
+        finally:
+            logging.getLogger().setLevel(level)
+        stats["steps_s"]["generate"] = time.perf_counter() - t0
+        stats["pairs"] = {}
+        for pos in TARGETED_POS:
+            with open(os.path.join(eval_dir,
+                                   f"eval_set_narration_{pos}.csv")) as f:
+                rows = list(csv.DictReader(f))
+            stats["pairs"][pos] = len(rows) // 2
+        stats["tagger"] = getattr(tagger, "__name__", type(tagger).__name__)
+        print(f"prep: extract_realines {len(realines)} clips in "
+              f"{stats['steps_s']['extract_realines']:.1f} s; eval sets "
+              f"(python -m peppa_tpu_torch.generate_eval_sets "
+              f"--min-occurrences {PREP_MIN_OCCURRENCES}) in "
+              f"{stats['steps_s']['generate']:.1f} s: minimal pairs "
+              f"{stats['pairs']}, tagger {stats['tagger']}")
+        if not all(stats["pairs"].values()):
+            raise AssertionError(f"empty eval sets {stats['pairs']}")
+
+        # targeted_eval --run on the generated sets
+        model = init_model(cfg, seed=0)
+        log_dir = os.path.join(root, "runs8")
+        vdir = os.path.join(log_dir, "version_0")
+        path = os.path.join(vdir, "checkpoints",
+                            "epoch=0-valnarr_triplet=0.50.ckpt")
+        os.makedirs(os.path.dirname(path))
+        cfg.dump(os.path.join(vdir, "hparams.yaml"))
+        save_checkpoint(path, TrainState.create(model, cfg),
+                        dict(RUN_META, best_model_path=path))
+        del model
+        predicted = {"batches": 0, "forward_s": 0.0}
+        undo.append(_patch(evaluation, "make_predict",
+                           _counted_predict(predicted)))
+        results = os.path.join(root, "results8")
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            targeted_eval.main(["--run", "--versions", "0", "--log_dir",
+                                log_dir, "--data_dir", data_dir,
+                                "--results_dir", results])
+            torch.cuda.synchronize()
+        finally:
+            logging.getLogger().setLevel(level)
+        stats["steps_s"]["targeted_eval"] = time.perf_counter() - t0
+        launches = _counts()
+        report["launches"]["prep_targeted"] = launches
+        stats["targeted_batches"] = predicted["batches"]
+        stats["targeted_forward_s"] = predicted["forward_s"]
+        want = {"attention_fwd": (cfg.audio.num_layers or 12)
+                * predicted["batches"],
+                "attention_bwd": 0, "triplet_loss": 0}
+        print(f"prep: targeted_eval --run on the generated sets in "
+              f"{stats['steps_s']['targeted_eval']:.1f} s: "
+              f"{predicted['batches']} batches (their forwards "
+              f"{predicted['forward_s']:.2f} s), launches {launches}")
+        if launches != want or record["plain"] or not predicted["batches"]:
+            raise AssertionError(f"targeted launches {launches} != {want}")
+        with open(os.path.join(results, "version_0",
+                               "minimal_pairs_scores.csv")) as f:
+            table = list(csv.DictReader(f))
+        n_rows = 2 * 2 * sum(stats["pairs"].values())  # scrambled or not
+        scores = np.array([float(r["result"]) for r in table])
+        if len(table) != n_rows or not np.isin(scores, (0.0, 1.0)).all():
+            raise AssertionError(f"targeted rows {len(table)} != {n_rows}")
+        stats["targeted_acc"] = float(scores.mean())
+
+        # human_check's exports
+        for name in steps:
+            t0 = time.perf_counter()
+            out_dir = os.path.join(root, "check8", name.split(".")[1])
+            if name == "human_check.export_triplets":
+                key = human_check.export_triplets(
+                    out_dir, n=5, target_size=tuple(cfg.data.target_size),
+                    audio_sample_rate=cfg.data.audio_sample_rate,
+                    data_dir=data_dir)
+                n = len(key)
+            else:
+                word = next(r["target_word"] for r in table
+                            if r["pos"] == "NOUN")
+                n = human_check.export_targeted_word(word, out_dir,
+                                                     data_dir=data_dir)
+            stats["steps_s"][name] = time.perf_counter() - t0
+            files = [os.path.join(r, f) for r, _, fs in os.walk(out_dir)
+                     for f in fs]
+            print(f"prep: {name}: {n} exported, {len(files)} files in "
+                  f"{stats['steps_s'][name]:.1f} s")
+            if not n or not all(os.path.getsize(p) for p in files):
+                raise AssertionError(f"{name}: {n} exported")
+    finally:
+        for u in undo:
+            u()
+
+    # the checks
+    stats["forward_ms"] = _aligner_forward_ms(variables, data_dir)
+    stats["card_vs_cpu"] = _aligner_card_vs_cpu(variables, data_dir)
+    stats["thread_files"] = _realign_threads_alike(variables, data_dir, root)
+    _hold_path_shapes(report, inputs, "prep_shapes", kernels=("attention",))
+    stats["attention_times"] = aligner_attention_times(report)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    report["prep"] = stats
+    print(f"prep: seconds per step {stats['steps_s']} ({card})")
+
+
 # ------------------------------------------------------------------ phase 5
 def card_vs_cpu() -> None:
     import numpy as np
@@ -2459,7 +3051,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
                         choices=("2", "3", "4a", "4b", "4c", "4d", "6", "7",
-                                 "5"),
+                                 "8", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -2493,6 +3085,7 @@ def main() -> int:
               ("4d", lambda: run_pipeline(report, card, root)),
               ("6", lambda: run_evaluation(report, card, root)),
               ("7", lambda: run_results(report, card, root)),
+              ("8", lambda: run_prep(report, card, root)),
               ("5", lambda: (card_vs_cpu(), card_vs_cpu_train())))
     chosen = set(args.phases or [p for p, _ in phases])
     if "7" in chosen and "6" not in chosen:
@@ -2514,7 +3107,8 @@ def main() -> int:
           f"{time.perf_counter() - T_START:.1f} s in all")
     if len(chosen) < len(phases):  # a part: its records, no summary
         print(json.dumps({k: v for k, v in report.items()
-                          if k in ("launches", "evaluation", "results")},
+                          if k in ("launches", "evaluation", "results",
+                                   "prep", "attention")},
                          default=str))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -2551,6 +3145,7 @@ def main() -> int:
                       "pipeline": report["pipeline"],
                       "evaluation": report["evaluation"],
                       "results": report["results"],
+                      "prep": report["prep"],
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

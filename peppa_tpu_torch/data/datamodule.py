@@ -4,9 +4,10 @@ Mirrors the single-process path of peppa_tpu/data/datamodule.py.  The
 contract is `prepare_data()`, `setup()`, `train_batches(epoch)` and
 `val_loaders()`:
 
-- prepare: the normalisation statistics of the training data to
-  `{data_dir}/out/stats.npz` when `data.prepare`; episode extraction
-  (`data.extract`) is not ported and raises;
+- prepare: with `data.extract`, the episodes of `{data_dir}/in` cut into
+  the clip tree (`preprocess/extract.py`); with `data.prepare`, the
+  normalisation statistics of the training data to
+  `{data_dir}/out/stats.npz`;
 - train (dialog, the train episodes, jittered as the config says): an item
   cache (`PeppaPigDataset`), or decoded on the fly with `data.iterable`;
   an epoch's stream is a function of `training.seed + epoch`, shuffled and
@@ -53,10 +54,10 @@ class PigData:
     def prepare_data(self) -> None:
         d = self.data
         if d.extract:
-            raise NotImplementedError(
-                "episode extraction (data.extract) is not ported yet "
-                "(ROADMAP A.5); extract with the JAX package or set "
-                "data.extract: false")
+            from peppa_tpu_torch.preprocess.extract import extract
+
+            logging.info("Extracting data for target size %s", d.target_size)
+            extract(d.target_size, data_dir=d.data_dir)
         if d.prepare:
             logging.info("Collecting stats on training data.")
             train = PeppaPigIterableDataset(

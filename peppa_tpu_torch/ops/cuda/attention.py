@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +38,9 @@ import torch
 NEG_INF = -1e30  # masked-key score, as the TPU kernel's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
+# the launch counters are read while worker threads launch (the aligner's
+# pool, preprocess/forced_align.py::realign): each increment holds the lock
+_count_lock = threading.Lock()
 
 
 def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,7 +161,8 @@ def _launch(q, k, v, lengths, scale, with_lse: bool = False
                             float(scale), _stream(q))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    mha_attention.launches += 1
+    with _count_lock:
+        mha_attention.launches += 1
     return out, lse
 
 
@@ -193,7 +198,8 @@ def _launch_bwd(q, k, v, do, lse, out, lengths, scale
     if err != 0:
         raise RuntimeError(
             f"attention backward kernel launch failed: cudaError {err}")
-    mha_attention_bwd.launches += 1
+    with _count_lock:
+        mha_attention_bwd.launches += 1
     return dq, dk, dv
 
 

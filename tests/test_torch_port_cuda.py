@@ -575,3 +575,59 @@ def test_use_pallas_false_launches_no_attention_kernel(cuda):
             out[flag] = model.encode_audio(x.to(cuda))
         assert mha_attention.launches - before == (2 if flag else 0)
     torch.testing.assert_close(out[False], out[True], rtol=1e-4, atol=1e-4)
+
+
+def test_launch_count_is_exact_under_threads(cuda):
+    """The aligner's pool launches kernel 1 from worker threads: the
+    counter takes every launch (8 threads x 50, float32, with lengths)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    q, k, v = (torch.randn(1, 99, 12, 64, device=cuda) for _ in range(3))
+    lengths = torch.tensor([98], device=cuda)
+
+    def run(_):
+        for _ in range(50):
+            mha_attention(q, k, v, lengths)
+
+    before = mha_attention.launches
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(run, range(8)))
+    torch.cuda.synchronize()
+    assert mha_attention.launches == before + 400
+
+
+def test_ctc_logits_fn_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A small wav2vec2 CTC model (2 layers, 4 heads of 16) on the card and
+    on the CPU: log-probs within 1e-4 (TF32 off), one kernel 1 launch per
+    layer and utterance, each with the utterance's frames as key length."""
+    import numpy as np
+
+    from peppa_tpu_torch.models import wav2vec2 as W
+    from peppa_tpu_torch.models.convert import export_jax_variables
+    from peppa_tpu_torch.models.dual_encoder import _init_parameters
+    from peppa_tpu_torch.preprocess import forced_align as F
+
+    cfg = W.Wav2Vec2Config(embed_dim=64, num_layers=2, num_heads=4,
+                           ffn_dim=128, pos_conv_kernel=16,
+                           pos_conv_groups=4, layer_drop=0.0)
+    model = W.Wav2Vec2(cfg)
+    _init_parameters(model, torch.Generator().manual_seed(0))
+    variables = export_jax_variables(model)
+    path = str(tmp_path / "a.wav")
+    F._write_wav(path, np.sin(np.arange(int(1.3 * 16000)) * 0.05) * 0.3,
+                 16000)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            fn = F.make_ctc_logits_fn(variables=variables, cfg=cfg,
+                                      device=device)
+            before = mha_attention.launches
+            out[device] = fn(path)
+            out[device + "_launches"] = mha_attention.launches - before
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert out["cuda_launches"] == cfg.num_layers
+    assert out["cpu_launches"] == 0
+    np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)

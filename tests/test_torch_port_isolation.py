@@ -151,3 +151,45 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+_ALIGN_PROBE = r"""
+import sys
+for blocked in ("jax", "flax", "pandas", "cv2"):
+    sys.modules[blocked] = None
+import numpy as np
+from peppa_tpu_torch.preprocess import forced_align as F
+tokens, _ = F.text_to_tokens("hi mum")
+lp = np.log(np.full((20, len(F.CTC_CHARS)), 1.0 / len(F.CTC_CHARS)))
+F.ctc_forced_align(lp, tokens)
+with open("/proc/self/maps") as f:
+    libs = sorted({line.split()[-1] for line in f if "ctc_align" in line})
+print(libs)
+"""
+
+
+def test_aligner_loads_the_ports_own_native_library():
+    """The forced aligner's DP is the port's build of
+    `native/src/ctc_align.cpp` under `peppa_tpu_torch/_build/`, never the
+    JAX package's `peppa_tpu/native/libpeppa_ctc_align.so`."""
+    from peppa_tpu_torch.native.build import BUILD_ROOT
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _ALIGN_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    libs = eval(out.stdout.strip().splitlines()[-1])
+    assert len(libs) == 1 and libs[0].startswith(BUILD_ROOT + os.sep), libs
+
+
+def test_aligner_raises_without_cuda(monkeypatch, tmp_path):
+    """`make_ctc_logits_fn` defaults to the card and raises without it,
+    before it reads the checkpoint it is given."""
+    from peppa_tpu_torch.preprocess.forced_align import make_ctc_logits_fn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({"checkpoint_path": str(tmp_path / "absent.pt")},
+               {"variables": {"params": {}}}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_ctc_logits_fn(**kw)

@@ -243,7 +243,8 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     """Without g++, or when it fails, the build raises: nothing falls back
     to the Python loader behind the caller's back."""
     monkeypatch.setattr(native_build, "library_path",
-                        lambda: str(tmp_path / "b" / "libpeppa_loader.so"))
+                        lambda target: str(tmp_path / "b" /
+                                           "libpeppa_loader.so"))
     monkeypatch.setattr(native_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native_build.build()
