@@ -8,10 +8,13 @@ Phases:
   1. the card's name and power limit; build the CUDA kernels from
      `peppa_tpu_torch/csrc/` (seconds printed);
   2. the registers and spill bytes (`ptxas -v`) of the bf16 attention
-     kernels (forward, backward dq and dkdv) and the loss kernels; each
+     kernels (forward, backward dq and dkdv), the float32 forward and its
+     combine kernel, and the loss kernels; each
      kernel against its plain PyTorch version on the card, at the main
      paths' shapes, with its time, the plain version's and a library
-     yardstick's: the attention forward (serving shapes, T=316 and 826),
+     yardstick's: the attention forward (serving shapes, T=316 and 826;
+     float32 at B=32, T=316 also replayed from a CUDA graph beside SDPA,
+     with the share of its bound),
      the attention backward (training shapes, T=316 and 826; it and SDPA's
      backward as the median of 7 timings, with their spread), the triplet
      loss alone and with its gradient (B = 8, 13, 32, 1024 and two
@@ -111,8 +114,9 @@ Phases:
      alignments, the native DP against the Python DP bit for bit, realign
      with 1 and 8 threads writing the same bytes, kernel 1 against its
      plain version on every shape of the phase, and kernel 1 in float32
-     timed at the aligner's shapes (B=1, one key short of T) with its plain
-     version, SDPA and its bound;
+     timed at the aligner's shapes (B=1, one key short of T), back-to-back
+     and replayed from a CUDA graph, with its plain version, SDPA (both
+     ways) and its bound;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
@@ -237,6 +241,8 @@ def bound(n_bytes: float, flops: float, dtype: str):
 RESOURCE_KERNELS = (
     ("attention", r"(attention_(?:fwd|bwd_dq|bwd_dkdv)_bf16_kernel)"
                   r"ILi(\d+)ELb([01])E", "{0}<hd {1}, vec {2}>"),
+    ("attention", r"(attention_fwd_f32(?:_combine)?_kernel)"
+                  r"ILi(\d+)ELb([01])E", "{0}<hd {1}, vec {2}>"),
     ("loss", r"(loss_cluster_kernel)ILi(\d)ELb([01])E", "{0}<R {1}, grad {2}>"),
     ("loss", r"(loss_tiles_kernel)ILb([01])E", "{0}<grad {1}>"),
     ("loss", r"(loss_(?:rows|grad)_kernel)", "{0}"),
@@ -245,8 +251,9 @@ RESOURCE_KERNELS = (
 
 def print_kernel_resources() -> None:
     """Registers and spill bytes of each bf16 attention kernel
-    instantiation (forward, backward dq and dkdv; head dim, vector path) and
-    of each loss kernel, from `ptxas -v` in this process's build."""
+    instantiation (forward, backward dq and dkdv; head dim, vector path),
+    of the float32 forward and its combine kernel, and of each loss
+    kernel, from `ptxas -v` in this process's build."""
     from peppa_tpu_torch.ops.cuda import build
 
     for source in ("attention", "loss"):
@@ -272,6 +279,60 @@ def print_kernel_resources() -> None:
                           f"registers, spill stores {spills[0]} bytes, spill "
                           f"loads {spills[1]} bytes")
                     break
+
+
+def f32_attention_times(b: int, t: int, length) -> dict:
+    """Kernel 1 in float32 at (b, t, 12, 64) with key length `length` for
+    every example (None: all t): held against its plain version, then
+    timed back-to-back (`time_ms`, the host's launch cost included) and
+    replayed from a CUDA graph (`graph_ms`, device time), beside SDPA on
+    the same inputs (a boolean key mask where there are lengths) timed
+    both ways and the plain version; with the bound and the share of it
+    reached in device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
+                                                    mha_attention_plain)
+
+    h, hd = 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(b, t, h, hd, generator=gen, device="cuda")
+               for _ in range(3))
+    lengths = mask = None
+    if length is not None:
+        lengths = torch.full((b,), length, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(t, device="cuda") < lengths[:, None])[
+            :, None, None, :]
+    err = (mha_attention(q, k, v, lengths)
+           - mha_attention_plain(q, k, v, lengths)).abs().max().item()
+    if not err <= TOL_ATTN["float32"]:
+        raise AssertionError(f"attention float32 B={b} T={t}: {err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def kernel():
+        mha_attention(q, k, v, lengths)
+
+    def sdpa():
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    n_keys = t if length is None else length
+    bms, by = bound(4 * b * t * h * hd * 4 + (0 if length is None else 4 * b),
+                    4 * b * h * t * n_keys * hd, "float32")
+    row = {"B": b, "T": t, "dtype": "float32", "length": length,
+           "ms": time_ms(kernel), "device_ms": graph_ms(kernel),
+           "plain_ms": time_ms(lambda: mha_attention_plain(q, k, v, lengths),
+                               iters=5),
+           "library_ms": time_ms(sdpa), "library_device_ms": graph_ms(sdpa),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+    row["bound_share"] = bms / row["device_ms"]
+    print(f"attention float32 B={b} T={t} (length {length}): kernel "
+          f"{row['ms']:.4f} ms back-to-back, {row['device_ms']:.4f} ms "
+          f"device; sdpa {row['library_ms']:.4f} / "
+          f"{row['library_device_ms']:.4f} ms; plain {row['plain_ms']:.4f} "
+          f"ms; bound {bms:.4f} ms ({by}), {row['bound_share']:.1%} of it "
+          f"in device time; max|d|={err:.3g} (tol {TOL_ATTN['float32']})")
+    return row
 
 
 def check_attention(report: dict) -> None:
@@ -318,10 +379,13 @@ def check_attention(report: dict) -> None:
                   f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} "
                   f"ms ({by})")
             if dtype == torch.bfloat16:
-                rows.append({"T": t, "ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, "bound_ms": bms,
-                             "bound_by": by})
-    # the kernel's line: T=316 (the 2.3 s bucket), with T=826 beside it
+                rows.append({"B": b, "T": t, "dtype": name, "ms": ms,
+                             "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "bound_ms": bms, "bound_by": by})
+            elif t == 316:  # the float32 Embedder's call (phase 7)
+                rows.append({**f32_attention_times(b, t, None),
+                             "path": "results_embedder_f32"})
+    # the kernel's line: T=316 (the 2.3 s bucket), with the rest beside it
     report["attention"] = {**{k: v for k, v in rows[0].items() if k != "T"},
                            "max_abs_err": worst, "shapes": rows}
 
@@ -2660,45 +2724,11 @@ def _realign_threads_alike(variables, data_dir: str, root: str) -> int:
 
 
 def aligner_attention_times(report: dict) -> list:
-    """Kernel 1 in float32 at the aligner's shapes (B=1, H=12, hd=64, T of
-    each bucket, key length T - 1) against its plain version and SDPA
-    (a boolean key mask), with the bound; rows added to the kernel's
-    `shapes`."""
-    import torch
-    import torch.nn.functional as F
-
-    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
-                                                    mha_attention_plain)
-
-    b, h, hd = 1, 12, 64
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    rows = []
-    for t in ALIGN_T:
-        q, k, v = (torch.randn(b, t, h, hd, generator=gen, device="cuda")
-                   for _ in range(3))
-        lengths = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
-        err = (mha_attention(q, k, v, lengths)
-               - mha_attention_plain(q, k, v, lengths)).abs().max().item()
-        if not err <= TOL_ATTN["float32"]:
-            raise AssertionError(f"aligner attention T={t}: {err}")
-        mask = (torch.arange(t, device="cuda") < lengths[:, None])[
-            :, None, None, :]
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = time_ms(lambda: mha_attention(q, k, v, lengths))
-        plain_ms = time_ms(lambda: mha_attention_plain(q, k, v, lengths),
-                           iters=5)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask))
-        bms, by = bound(4 * b * t * h * hd * 4 + 4 * b,
-                        4 * b * h * t * (t - 1) * hd, "float32")
-        print(f"attention, aligner B={b} T={t} (length {t - 1}) float32: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); max|d|="
-              f"{err:.3g} (tol {TOL_ATTN['float32']})")
-        rows.append({"T": t, "B": b, "dtype": "float32", "length": t - 1,
-                     "path": "prep_realign", "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                     "max_abs_err": err})
+    """Kernel 1 in float32 at the aligner's shapes (B=1, T of each bucket,
+    key length T - 1), by `f32_attention_times`; rows added to the
+    kernel's `shapes`."""
+    rows = [{**f32_attention_times(1, t, t - 1), "path": "prep_realign"}
+            for t in ALIGN_T]
     held = report.setdefault("attention", {"max_abs_err": 0.0})
     held.setdefault("shapes", []).extend(rows)
     return rows

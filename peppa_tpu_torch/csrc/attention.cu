@@ -51,14 +51,38 @@
 //   (two products, packed conversions), so P keeps ~16 bits and the
 //   product stays float32 math to ~1e-5 relative, as the Pallas kernel's
 //   float32 p @ v.
-// float32 (tests and the card-vs-CPU check): grid (B*H, ceil(T/64)), one
-// thread per query row on the CUDA cores, full float32 FMAs (no TF32),
-// chunks of 16 keys per rescale.  When the caller asks (autograd needs it),
-// both write the float32 log-sum-exp of each row's scaled scores for the
-// backward (serving passes null): float32 in natural-log units; bf16 in
-// log2 units, lse2 = m + log2(l) over the rounded scaled scores
-// x = s * (scale*log2(e)) that its softmax exponentiates (2^(x - m)), so the
-// backward's 2^(x - lse2) is exactly 1 on a row with one key.
+// float32 (the aligner's CTC forward, B=1 with key lengths; the float32
+// `grsa.Embedder`, B=32; the card-vs-CPU checks): full float32 FMAs on the
+// CUDA cores (no TF32: this route is the port's precision reference).
+// - Bound: operations at 67 TF/s, 4*B*H*T*n_keys*hd of them: 0.1465 ms
+//   at B=32, T=316 and 0.0292 ms at B=1, T=799 (q, k, v, o move 124 and
+//   9.8 MB, 37 and 2.9 us at 3.35 TB/s).  The CUDA cores do one FMA per
+//   operand pair, so the design counts instruction slots.
+// - Instructions.  A register-tiled micro-kernel, as in a SIMT SGEMM: 128
+//   threads per 64-row query tile, each owning 4 rows x 8 keys of S and
+//   4 rows x HD/8 dims of O, so one 16-byte shared-memory load feeds about
+//   11 FMAs (one fed 4 in the kernel this replaced).  P goes through shared
+//   memory transposed, for float4 loads in P v; the row max and sum are
+//   reduced over a row's eight lanes by shuffles; the softmax runs in log2
+//   units (one FMA and one `ex2.approx` per score) with one rescale per
+//   64-key tile.
+// - Latency.  K/V tiles of 64 keys stream through two shared-memory stages
+//   by `cp.async` (zero-filled past T), tile j+1 in flight while tile j is
+//   multiplied; 102 KB of dynamic shared memory at hd 64, two blocks per
+//   SM.  Views whose rows are not 16-byte vectors stage synchronously
+//   (template flag VEC).
+// - Small grids.  Where B*H*ceil(T/64) tiles cannot fill 132 SMs (the
+//   aligner's B=1: 24-156 tiles), each row's keys are cut into contiguous
+//   splits of whole tiles, one block each (`_f32_plan` in
+//   ops/cuda/attention.py chooses the count from the shapes); the splits'
+//   partial rows are combined by their log-sum-exps by a second kernel, in
+//   split order, without atomics, so every launch gives the same bits.
+// When the caller asks (autograd needs it), both forwards write the
+// float32 log-sum-exp of each row's scaled scores for the backward
+// (serving passes null): float32 in natural-log units; bf16 in log2 units,
+// lse2 = m + log2(l) over the rounded scaled scores x = s * (scale*log2(e))
+// that its softmax exponentiates (2^(x - m)), so the backward's
+// 2^(x - lse2) is exactly 1 on a row with one key.
 //
 // Backward (section "backward" below).  Replaces the TPU kernel
 // peppa_tpu/ops/pallas/attention.py `_bwd_kernel` (called from
@@ -82,127 +106,21 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block (float32 forward)
 constexpr int kRows = 128;    // rows per block (bf16 kernels)
 constexpr int kThreads = kRows * 2;  // eight warps of 16 rows
 constexpr int kBlockK = 64;   // keys per shared-memory tile
-constexpr int kChunk = 16;    // keys per online-softmax rescale (float32)
 constexpr int kPad = 8;       // bf16 row padding: conflict-free fragments
 constexpr float kMaskValue = -1e30f;  // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kF32Rows = 64;      // query rows per block (float32 forward)
+constexpr int kF32Threads = 128;  // 16 row groups x 8 column groups
+constexpr int kF32Pad = 4;        // float32 row padding: conflict-free float4
+constexpr int kCombineThreads = 256;
 
 struct Strides {
   long long b, t, h, d;
 };
-
-// ------------------------------------------------------------ float32
-
-template <int HD>
-__global__ void __launch_bounds__(kBlockQ)
-attention_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse,
-                         const int* __restrict__ lengths, int n_heads,
-                         int seq, Strides sq, Strides sk, Strides sv,
-                         Strides so, float scale) {
-  __shared__ __align__(16) float ks[kBlockK][HD];
-  __shared__ __align__(16) float vs[kBlockK][HD];
-
-  const int b = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int row = blockIdx.y * kBlockQ + threadIdx.x;
-  const bool active = row < seq;
-
-  const int len = lengths != nullptr ? lengths[b] : seq;
-  const bool all_masked = len < 1;
-  // keys the row must visit: the valid ones, or all T when none is valid
-  const int n_keys = all_masked ? seq : min(len, seq);
-
-  float qr[HD];
-  float acc[HD];
-  if (active) {
-    const float* qp = q + b * sq.b + row * sq.t + h * sq.h;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      qr[d] = qp[d * sq.d] * scale;
-      acc[d] = 0.f;
-    }
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  const float* kbase = k + b * sk.b + h * sk.h;
-  const float* vbase = v + b * sv.b + h * sv.h;
-  for (int k0 = 0; k0 < n_keys; k0 += kBlockK) {
-    for (int idx = threadIdx.x; idx < kBlockK * HD; idx += kBlockQ) {
-      const int j = idx / HD;
-      const int d = idx % HD;
-      const int key = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < seq) {
-        kv = kbase[key * sk.t + d * sk.d];
-        vv = vbase[key * sv.t + d * sv.d];
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    __syncthreads();
-    if (active) {
-      const int tile_keys = min(kBlockK, n_keys - k0);
-      for (int c = 0; c < tile_keys; c += kChunk) {
-        float s[kChunk];
-        float cmax = -INFINITY;
-#pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) {
-          const int j = c + jj;
-          float dot = 0.f;
-          const float4* kr = reinterpret_cast<const float4*>(ks[j]);
-#pragma unroll
-          for (int d4 = 0; d4 < HD / 4; ++d4) {
-            const float4 kk = kr[d4];
-            dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-            dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-            dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-            dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-          }
-          // keys past n_keys do not exist for this row (exp(-inf) = 0)
-          s[jj] = j < tile_keys ? (all_masked ? kMaskValue : dot) : -INFINITY;
-          cmax = fmaxf(cmax, s[jj]);
-        }
-        const float m_new = fmaxf(m, cmax);
-        const float corr = expf(m - m_new);
-        l *= corr;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] *= corr;
-#pragma unroll
-        for (int jj = 0; jj < kChunk; ++jj) {
-          const float p = expf(s[jj] - m_new);
-          l += p;
-          const float4* vr = reinterpret_cast<const float4*>(vs[c + jj]);
-#pragma unroll
-          for (int d4 = 0; d4 < HD / 4; ++d4) {
-            const float4 vv = vr[d4];
-            acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-            acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-            acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-            acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-          }
-        }
-        m = m_new;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-    const float inv = 1.f / l;
-    float* op = o + b * so.b + row * so.t + h * so.h;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) op[d * so.d] = acc[d] * inv;
-    if (lse != nullptr) lse[blockIdx.x * seq + row] = m + logf(l);
-  }
-}
 
 // ----------------------------------------------------------- bfloat16
 
@@ -573,6 +491,383 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
         obase[row * so.t + (d + i) * so.d] = os[r][d + i];
       }
     }
+  }
+}
+
+// ------------------------------------------------------ float32 forward
+//
+// 128 threads own a 64-row query tile.  Thread (rg, cg), rg = 0..15 (four
+// row groups per warp), cg = 0..7 (its lane within the group of eight),
+// owns rows rg + 16a (a = 0..3) of S and O: keys cg + 8i (i = 0..7) of
+// each 64-key tile of S = q k^T, and HD/8 dims of O.  A step of 4 dims of
+// q k^T costs 4 + 8 float4 loads for 128 FMAs, a key of P v 1 + HD/32
+// float4 loads for HD/2 FMAs; rows padded by 4 floats put the eight keys
+// or four rows that one load touches on distinct banks.  P passes through
+// shared memory as P^T, so a key's four rows of one thread are one
+// float4.  The row max and the row sum are reduced over the eight lanes
+// of a row group by `__shfl_xor_sync`.
+
+// 16 bytes from global to shared memory without registers; zeros when
+// !valid (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 64 rows from r0 of one (b, h) slice into shared memory (zero at and past
+// `limit`), by the whole block: `cp.async` when VEC, else synchronous
+// strided loads
+template <int HD, bool VEC>
+__device__ __forceinline__ void stage_f32(float (*dst)[HD + kF32Pad],
+                                          const float* base, Strides s,
+                                          int r0, int limit) {
+  for (int idx = threadIdx.x; idx < kF32Rows * HD / 4; idx += kF32Threads) {
+    const int j = idx / (HD / 4);
+    const int d = idx % (HD / 4) * 4;
+    const int r = r0 + j;
+    const bool valid = r < limit;
+    if (VEC) {
+      cp_async16(&dst[j][d], valid ? base + r * s.t + d : base, valid);
+    } else {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (valid) {
+        const float* p = base + r * s.t + d * s.d;
+        x = make_float4(p[0], p[s.d], p[2 * s.d], p[3 * s.d]);
+      }
+      *reinterpret_cast<float4*>(&dst[j][d]) = x;
+    }
+  }
+}
+
+// dim of this thread's O element e (0 <= e < HD/8): float4 chunks 32
+// apart at hd 32 and 64, one float2 at hd 16
+template <int HD>
+__device__ __forceinline__ int f32_dim(int cg, int e) {
+  return HD >= 32 ? e / 4 * 32 + cg * 4 + e % 4 : cg * (HD / 8) + e;
+}
+
+// o += P v for key j: the thread's four rows of P^T as one float4, its
+// HD/8 dims of V
+template <int HD>
+__device__ __forceinline__ void f32_pv_key(const float (*pt)[kF32Rows +
+                                                             kF32Pad],
+                                           const float (*vt)[HD + kF32Pad],
+                                           float (&acc)[4][HD / 8], int j,
+                                           int rg, int cg) {
+  const float4 p4 = *reinterpret_cast<const float4*>(&pt[j][4 * rg]);
+  const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+  if (HD >= 32) {
+#pragma unroll
+    for (int c = 0; c < HD / 32; ++c) {
+      const float4 vv =
+          *reinterpret_cast<const float4*>(&vt[j][32 * c + 4 * cg]);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        acc[a][4 * c + 0] = fmaf(p[a], vv.x, acc[a][4 * c + 0]);
+        acc[a][4 * c + 1] = fmaf(p[a], vv.y, acc[a][4 * c + 1]);
+        acc[a][4 * c + 2] = fmaf(p[a], vv.z, acc[a][4 * c + 2]);
+        acc[a][4 * c + 3] = fmaf(p[a], vv.w, acc[a][4 * c + 3]);
+      }
+    }
+  } else {
+    const float2 vv = *reinterpret_cast<const float2*>(&vt[j][2 * cg]);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      acc[a][0] = fmaf(p[a], vv.x, acc[a][0]);
+      acc[a][1] = fmaf(p[a], vv.y, acc[a][1]);
+    }
+  }
+}
+
+// One K/V tile for the block's 64 rows: S = q k^T, the online softmax in
+// log2 units, o += P v.  Keys at and past `tile_keys` do not exist for
+// these rows.  `scale_log2` is scale*log2(e), or 0 for a row of length 0
+// (every key then weighs the same).  Holds a barrier between P's stores
+// and P v.
+template <int HD>
+__device__ __forceinline__ void f32_tile(const float (*qs)[HD + kF32Pad],
+                                         const float (*kt)[HD + kF32Pad],
+                                         const float (*vt)[HD + kF32Pad],
+                                         float (*pt)[kF32Rows + kF32Pad],
+                                         float (&acc)[4][HD / 8],
+                                         float (&m)[4], float (&l)[4],
+                                         int tile_keys, float scale_log2,
+                                         int rg, int cg) {
+  float s[4][8];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[a][i] = 0.f;
+  }
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qv[a] = *reinterpret_cast<const float4*>(&qs[rg + 16 * a][d]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 kv = *reinterpret_cast<const float4*>(&kt[cg + 8 * i][d]);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        s[a][i] = fmaf(qv[a].x, kv.x, s[a][i]);
+        s[a][i] = fmaf(qv[a].y, kv.y, s[a][i]);
+        s[a][i] = fmaf(qv[a].z, kv.z, s[a][i]);
+        s[a][i] = fmaf(qv[a].w, kv.w, s[a][i]);
+      }
+    }
+  }
+
+  // online softmax in log2 units: the max on the raw scores (scale_log2
+  // >= 0), p = 2^(s * scale_log2 - m) by one FMA and one MUFU op; a
+  // missing key weighs 0 (at length 0, -inf * 0 would be NaN)
+  const bool mask = tile_keys < kBlockK;
+  float corr[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (!(mask && cg + 8 * i >= tile_keys)) mx = fmaxf(mx, s[a][i]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_new = fmaxf(m[a], mx * scale_log2);
+    corr[a] = exp2_ftz(m[a] - m_new);
+    m[a] = m_new;
+    l[a] *= corr[a];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool gone = mask && cg + 8 * i >= tile_keys;
+    float p[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      p[a] = gone ? 0.f : exp2_ftz(fmaf(s[a][i], scale_log2, -m[a]));
+      l[a] += p[a];
+    }
+    *reinterpret_cast<float4*>(&pt[cg + 8 * i][4 * rg]) =
+        make_float4(p[0], p[1], p[2], p[3]);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int e = 0; e < HD / 8; ++e) acc[a][e] *= corr[a];
+  }
+  __syncthreads();  // P^T complete
+
+  // o += P v over the tile's keys: a full tile with a fixed trip count
+  if (tile_keys == kBlockK) {
+#pragma unroll 8
+    for (int j = 0; j < kBlockK; ++j) f32_pv_key<HD>(pt, vt, acc, j, rg, cg);
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < tile_keys; ++j) {
+      f32_pv_key<HD>(pt, vt, acc, j, rg, cg);
+    }
+  }
+}
+
+// Shared memory of the float32 forward: q (64 rows), two stages of K and
+// of V (64 rows each), rows padded to HD + 4; then P^T (64 keys x 64 rows,
+// padded to 68)
+template <int HD>
+constexpr int f32_smem_bytes() {
+  return (5 * kF32Rows * (HD + kF32Pad) + kBlockK * (kF32Rows + kF32Pad)) *
+         static_cast<int>(sizeof(float));
+}
+
+// Grid: n_splits key splits x ceil(T/64) query tiles x B*H, split fastest
+// (head-major); kF32Threads threads, f32_smem_bytes<HD>() of dynamic
+// shared memory.  Split s visits keys [s * split_keys, (s + 1) *
+// split_keys) of the row's valid keys; a split past them adds nothing
+// (m = -inf, l = 0).  One split writes o and the lse; several write their
+// unnormalised o, m (log2 units) and l to `part` for the combine kernel.
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, 2)
+attention_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, float* __restrict__ part,
+                         const int* __restrict__ lengths, int n_heads,
+                         int seq, int n_qtiles, int n_splits, int split_keys,
+                         int n_bh, Strides sq, Strides sk, Strides sv,
+                         Strides so, float scale_log2) {
+  constexpr int kLd = HD + kF32Pad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float (*qs)[kLd] = reinterpret_cast<float (*)[kLd]>(smem);
+  float (*ks)[kLd] = qs + kF32Rows;     // stage s: ks + s * kBlockK
+  float (*vs)[kLd] = ks + 2 * kBlockK;  // stage s: vs + s * kBlockK
+  float (*pt)[kF32Rows + kF32Pad] =
+      reinterpret_cast<float (*)[kF32Rows + kF32Pad]>(vs + 2 * kBlockK);
+
+  const int lane = threadIdx.x % 32;
+  const int rg = threadIdx.x / 32 * 4 + lane / 8;  // rows rg + 16a
+  const int cg = lane % 8;
+  const int split = blockIdx.x % n_splits;
+  const int tile = blockIdx.x / n_splits;
+  const int bh = tile / n_qtiles;
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const int q0 = tile % n_qtiles * kF32Rows;
+
+  const int len = lengths != nullptr ? lengths[b] : seq;
+  const bool all_masked = len < 1;
+  // keys the rows must visit: the valid ones, or all T when none is valid
+  const int n_keys = all_masked ? seq : min(len, seq);
+  const int k_begin = split * split_keys;
+  const int k_end = min(k_begin + split_keys, n_keys);
+  // length 0: every key scores the constant -1e30, so P is uniform; the
+  // tiles run with scale 0 and the log-sum-exp adds the constant back
+  const float row_scale = all_masked ? 0.f : scale_log2;
+
+  float acc[4][HD / 8];
+  float m[4], l[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+#pragma unroll
+    for (int e = 0; e < HD / 8; ++e) acc[a][e] = 0.f;
+  }
+
+  if (k_begin < k_end) {
+    const float* kbase = k + b * sk.b + h * sk.h;
+    const float* vbase = v + b * sv.b + h * sv.h;
+    // q and K/V tile 0: group 0
+    stage_f32<HD, VEC>(qs, q + b * sq.b + h * sq.h, sq, q0, seq);
+    stage_f32<HD, VEC>(ks, kbase, sk, k_begin, seq);
+    stage_f32<HD, VEC>(vs, vbase, sv, k_begin, seq);
+    cp_async_commit();
+    const int n_tiles = (k_end - k_begin + kBlockK - 1) / kBlockK;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t & 1;
+      // tile t has landed, and every thread is done with tile t - 1 (its
+      // stage and P^T): tile t + 1 goes into that stage while t runs
+      cp_async_wait<0>();
+      __syncthreads();
+      if (t + 1 < n_tiles) {
+        const int k1 = k_begin + (t + 1) * kBlockK;
+        stage_f32<HD, VEC>(ks + (stage ^ 1) * kBlockK, kbase, sk, k1, seq);
+        stage_f32<HD, VEC>(vs + (stage ^ 1) * kBlockK, vbase, sv, k1, seq);
+      }
+      cp_async_commit();
+      f32_tile<HD>(qs, ks + stage * kBlockK, vs + stage * kBlockK, pt, acc,
+                   m, l, min(kBlockK, k_end - k_begin - t * kBlockK),
+                   row_scale, rg, cg);
+    }
+  }
+
+  // the row sums over the eight lanes of a row group (every lane gets the
+  // same bits: the butterfly adds commutative pairs)
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 1);
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 2);
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 4);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = q0 + rg + 16 * a;
+    if (row >= seq) continue;
+    if (n_splits == 1) {
+      const float inv = 1.f / l[a];
+      float* op = o + b * so.b + row * so.t + h * so.h;
+      if (VEC && HD >= 32) {
+#pragma unroll
+        for (int c = 0; c < HD / 32; ++c) {
+          *reinterpret_cast<float4*>(op + 32 * c + 4 * cg) = make_float4(
+              acc[a][4 * c] * inv, acc[a][4 * c + 1] * inv,
+              acc[a][4 * c + 2] * inv, acc[a][4 * c + 3] * inv);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < HD / 8; ++e) {
+          op[f32_dim<HD>(cg, e) * so.d] = acc[a][e] * inv;
+        }
+      }
+      if (lse != nullptr && cg == 0) {
+        // natural-log units, as the float32 backward reads it
+        lse[bh * seq + row] =
+            (all_masked ? kMaskValue : m[a] * kLn2) + logf(l[a]);
+      }
+    } else {
+      const long long r =
+          (static_cast<long long>(split) * n_bh + bh) * seq + row;
+      float* pp = part + r * HD;
+#pragma unroll
+      for (int e = 0; e < HD / 8; ++e) pp[f32_dim<HD>(cg, e)] = acc[a][e];
+      if (cg == 0) {
+        float2* ml = reinterpret_cast<float2*>(
+            part + static_cast<long long>(n_splits) * n_bh * seq * HD);
+        ml[r] = make_float2(m[a], l[a]);
+      }
+    }
+  }
+}
+
+// The key splits' partial rows combined by their log-sum-exps, in split
+// order: M = max m_s, L = sum l_s 2^(m_s - M), o = sum acc_s 2^(m_s - M)
+// / L.  A split with l = 0 (past the row's keys) adds nothing.  One thread
+// per row and four dims.
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(kCombineThreads)
+attention_fwd_f32_combine_kernel(const float* __restrict__ part,
+                                 float* __restrict__ o,
+                                 float* __restrict__ lse,
+                                 const int* __restrict__ lengths,
+                                 int n_heads, int seq, int n_splits,
+                                 int n_bh, Strides so) {
+  const long long n_rows = static_cast<long long>(n_bh) * seq;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  const long long r = idx / (HD / 4);  // bh * seq + row
+  const int d = static_cast<int>(idx % (HD / 4)) * 4;
+  if (r >= n_rows) return;
+  const float2* ml =
+      reinterpret_cast<const float2*>(part + n_splits * n_rows * HD);
+  float mx = -INFINITY;
+  for (int s = 0; s < n_splits; ++s) {
+    const float2 x = ml[s * n_rows + r];
+    if (x.y > 0.f) mx = fmaxf(mx, x.x);
+  }
+  float sum = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_splits; ++s) {
+    const float2 x = ml[s * n_rows + r];
+    if (!(x.y > 0.f)) continue;
+    const float w = exp2_ftz(x.x - mx);
+    sum = fmaf(x.y, w, sum);
+    const float4 p =
+        *reinterpret_cast<const float4*>(part + (s * n_rows + r) * HD + d);
+    acc.x = fmaf(w, p.x, acc.x);
+    acc.y = fmaf(w, p.y, acc.y);
+    acc.z = fmaf(w, p.z, acc.z);
+    acc.w = fmaf(w, p.w, acc.w);
+  }
+  const int bh = static_cast<int>(r / seq);
+  const int row = static_cast<int>(r % seq);
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const float inv = 1.f / sum;
+  float* op = o + b * so.b + row * so.t + h * so.h + d * so.d;
+  if (VEC) {
+    *reinterpret_cast<float4*>(op) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  } else {
+    op[0] = acc.x * inv;
+    op[so.d] = acc.y * inv;
+    op[2 * so.d] = acc.z * inv;
+    op[3 * so.d] = acc.w * inv;
+  }
+  if (lse != nullptr && d == 0) {
+    const bool all_masked = lengths != nullptr && lengths[b] < 1;
+    lse[r] = (all_masked ? kMaskValue : mx * kLn2) + logf(sum);
   }
 }
 
@@ -1365,18 +1660,66 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// rows of 4 floats as 16-byte vectors: d contiguous, rows 16-byte aligned
+bool vec_rows_f32(const void* p, Strides s) {
+  return s.d == 1 && aligned16(p) && (s.b | s.t | s.h) % 4 == 0;
+}
+
+template <int HD, bool VEC>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
+                           void* o, float* lse, float* part,
+                           const int* lengths, int batch, int seq,
+                           int n_heads, int n_splits, Strides sq, Strides sk,
+                           Strides sv, Strides so, float scale,
+                           cudaStream_t stream) {
+  if (n_splits < 1 || (n_splits > 1 && part == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = attention_fwd_f32_kernel<HD, VEC>;
+  constexpr int smem = f32_smem_bytes<HD>();
+  // above 48 KB (hd 32 and 64) only after this opt-in
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qtiles = (seq + kF32Rows - 1) / kF32Rows;
+  const int n_ktiles = (seq + kBlockK - 1) / kBlockK;
+  const int split_keys = (n_ktiles + n_splits - 1) / n_splits * kBlockK;
+  const int n_bh = batch * n_heads;
+  const float* qf = static_cast<const float*>(q);
+  float* of = static_cast<float*>(o);
+  kernel<<<n_splits * n_qtiles * n_bh, kF32Threads, smem, stream>>>(
+      qf, static_cast<const float*>(k), static_cast<const float*>(v), of,
+      lse, part, lengths, n_heads, seq, n_qtiles, n_splits, split_keys, n_bh,
+      sq, sk, sv, so, scale * kLog2e);
+  if (n_splits == 1) return cudaGetLastError();
+  const cudaError_t err2 = cudaGetLastError();
+  if (err2 != cudaSuccess) return err2;
+  const long long n = static_cast<long long>(n_bh) * seq * (HD / 4);
+  auto combine = attention_fwd_f32_combine_kernel<HD, VEC>;
+  const unsigned blocks =
+      static_cast<unsigned>((n + kCombineThreads - 1) / kCombineThreads);
+  combine<<<blocks, kCombineThreads, 0, stream>>>(part, of, lse, lengths,
+                                                  n_heads, seq, n_splits,
+                                                  n_bh, so);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, float* lse, const int* lengths, int batch,
                    int seq, int n_heads, Strides sq, Strides sk, Strides sv,
-                   Strides so, float scale, cudaStream_t stream) {
+                   Strides so, float scale, int n_splits, float* part,
+                   cudaStream_t stream) {
   if (dtype == 0) {
-    const dim3 grid(batch * n_heads, (seq + kBlockQ - 1) / kBlockQ);
-    attention_fwd_f32_kernel<HD><<<grid, kBlockQ, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, lengths,
-        n_heads, seq, sq, sk, sv, so, scale);
-    return cudaGetLastError();
+    if (vec_rows_f32(q, sq) && vec_rows_f32(k, sk) && vec_rows_f32(v, sv) &&
+        vec_rows_f32(o, so)) {
+      return launch_fwd_f32<HD, true>(q, k, v, o, lse, part, lengths, batch,
+                                      seq, n_heads, n_splits, sq, sk, sv, so,
+                                      scale, stream);
+    }
+    return launch_fwd_f32<HD, false>(q, k, v, o, lse, part, lengths, batch,
+                                     seq, n_heads, n_splits, sq, sk, sv, so,
+                                     scale, stream);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
   if (vec_rows(q, sq) && vec_rows(k, sk) && vec_rows(v, sv) &&
@@ -1476,28 +1819,32 @@ Strides strides_at(const long long* s, int i) {
 // for q, k, v, o in elements.  lse: float32 (B*H, T) written when not null
 // (the backward's input; natural-log units in float32, log2 units in
 // bfloat16).  lengths: int32 (B,) or null.  head_dim: 16, 32 or
-// 64.  Returns the launch's cudaError_t.
+// 64.  n_splits: key splits of the float32 forward (1 in bfloat16); with
+// more than one, scratch holds n_splits * B*H*T * (head_dim + 2) floats.
+// Returns the first failed launch's cudaError_t, else 0.
 extern "C" int peppa_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const void* lengths, int dtype, int batch,
                                    int seq, int n_heads, int head_dim,
                                    const long long* strides, float scale,
-                                   void* stream) {
+                                   void* stream, int n_splits,
+                                   void* scratch) {
   const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1);
   const Strides sv = strides_at(strides, 2), so = strides_at(strides, 3);
   const int* lens = static_cast<const int*>(lengths);
   float* l = static_cast<float*>(lse);
+  float* part = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
       return launch<16>(dtype, q, k, v, o, l, lens, batch, seq, n_heads, sq,
-                        sk, sv, so, scale, s);
+                        sk, sv, so, scale, n_splits, part, s);
     case 32:
       return launch<32>(dtype, q, k, v, o, l, lens, batch, seq, n_heads, sq,
-                        sk, sv, so, scale, s);
+                        sk, sv, so, scale, n_splits, part, s);
     case 64:
       return launch<64>(dtype, q, k, v, o, l, lens, batch, seq, n_heads, sq,
-                        sk, sv, so, scale, s);
+                        sk, sv, so, scale, n_splits, part, s);
     default:
       return cudaErrorInvalidValue;
   }

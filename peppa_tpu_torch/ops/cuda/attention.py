@@ -15,7 +15,18 @@ keeps its online softmax in float32 (log2 units).  The bf16 backward is
 built the same way, in two grids without atomics (query tiles for dQ, key
 tiles for dK and dV): it recomputes P in the forward's log2 units from the
 forward's log-sum-exp and takes D = rowsum(dO o O) from the forward's
-output.  float32 runs on the CUDA cores.
+output.
+
+float32 runs on the CUDA cores in full float32 FMAs (the port's precision
+reference: the aligner's CTC log-probs, the float32 Embedder, the
+card-vs-CPU checks).  The forward's bound is operations at 67 TF/s: 0.1465
+ms at B=32, T=316 and 0.0292 ms at B=1, T=799.  It is register-tiled like a
+SIMT SGEMM (4 rows x 8 keys of S and 4 rows x HD/8 dims of O a thread, so
+one 16-byte shared-memory load feeds about 11 FMAs), streams K/V through
+two `cp.async` stages, and where the grid of 64-row tiles is too small
+for the card (the aligner's B=1) cuts each row's keys into splits that a
+second kernel combines by their log-sum-exps in a fixed order
+(`_f32_plan`, from the shapes alone; scratch from `torch.empty` per call).
 
 `mha_attention` takes (B, T, H, hd) q/k/v in float32 or bfloat16 and returns
 the same layout in q's dtype.  When autograd needs its gradient it runs as a
@@ -31,13 +42,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30  # masked-key score, as the TPU kernel's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
+# the float32 forward: query rows (and keys) per tile, as `kF32Rows` and
+# `kBlockK` in csrc/attention.cu; the blocks it aims for, two waves of two
+# resident blocks on each of an H100's 132 SMs
+_F32_ROWS = 64
+_F32_BLOCKS = 4 * 132
 # the launch counters are read while worker threads launch (the aligner's
 # pool, preprocess/forced_align.py::realign): each increment holds the lock
 _count_lock = threading.Lock()
@@ -104,7 +120,8 @@ def _kernels():
     lib = library("attention")
     fwd = lib.peppa_attention_fwd
     fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.peppa_attention_bwd
     bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
@@ -138,6 +155,30 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _f32_plan(batch: int, heads: int, seq: int) -> Tuple[int, int]:
+    """(query rows per tile, key splits) of the float32 forward kernel.
+
+    From the shapes alone (no read of the lengths on the card, so no host
+    sync).  A block takes one 64-row query tile; where B*H*ceil(T/64) tiles
+    fall short of `_F32_BLOCKS` (the aligner's B=1), each row's keys are
+    cut into up to ceil(T/64) contiguous ranges of whole 64-key tiles, one
+    block each, combined by their log-sum-exps.  The count is rounded so
+    that `_f32_key_splits` leaves no range empty at full length."""
+    tiles = -(-seq // _F32_ROWS)
+    want = min(tiles, max(1, -(-_F32_BLOCKS // (batch * heads * tiles))))
+    per = -(-tiles // want)
+    return _F32_ROWS, -(-tiles // per)
+
+
+def _f32_key_splits(seq: int, n_splits: int) -> List[Tuple[int, int]]:
+    """The key range [k0, k1) of each split, as `launch_fwd_f32` cuts them
+    (before the row's length clips them)."""
+    tiles = -(-seq // _F32_ROWS)
+    per = -(-tiles // n_splits) * _F32_ROWS
+    return [(min(s * per, seq), min((s + 1) * per, seq))
+            for s in range(n_splits)]
+
+
 def _launch(q, k, v, lengths, scale, with_lse: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward kernel: (out, float32 (B, H, T) log-sum-exp or None).
@@ -151,6 +192,14 @@ def _launch(q, k, v, lengths, scale, with_lse: bool = False
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    n_splits, scratch = 1, None
+    if q.dtype == torch.float32:
+        n_splits = _f32_plan(b, h, t)[1]
+        if n_splits > 1:
+            # each split's unnormalised rows, then its (max, sum) pairs;
+            # one buffer per call (the aligner's threads launch at once)
+            scratch = torch.empty(n_splits * b * h * t * (hd + 2),
+                                  dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(), *out.stride())
     with torch.cuda.device(q.device):
@@ -158,7 +207,8 @@ def _launch(q, k, v, lengths, scale, with_lse: bool = False
                             out.data_ptr(),
                             lse.data_ptr() if with_lse else None, lens_ptr,
                             _DTYPES[q.dtype], b, t, h, hd, strides,
-                            float(scale), _stream(q))
+                            float(scale), _stream(q), n_splits,
+                            None if scratch is None else scratch.data_ptr())
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     with _count_lock:

@@ -11,7 +11,8 @@ import math
 import pytest
 import torch
 
-from peppa_tpu_torch.ops.cuda.attention import (_launch, mha_attention,
+from peppa_tpu_torch.ops.cuda.attention import (_f32_key_splits, _f32_plan,
+                                                _launch, mha_attention,
                                                 mha_attention_bwd,
                                                 mha_attention_bwd_plain,
                                                 mha_attention_plain)
@@ -631,3 +632,156 @@ def test_ctc_logits_fn_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert out["cuda_launches"] == cfg.num_layers
     assert out["cpu_launches"] == 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------- kernel 1, float32 route
+#
+# The float32 forward cuts the keys of small grids into splits combined by
+# their log-sum-exps (`_f32_plan`): B=1 is the aligner's case.
+
+ALIGN_T = (99, 199, 399, 799)  # the 2, 4, 8 and 16 s buckets
+
+
+def _f32_inputs(cuda, b, t, hd=64):
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    return [torch.randn(b, t, 12, hd, generator=gen, device=cuda)
+            for _ in range(3)]
+
+
+def _held(q, k, v, lengths):
+    """One launch of the kernel, within 1e-5 of the plain version."""
+    before = mha_attention.launches
+    got = mha_attention(q, k, v, lengths)
+    assert mha_attention.launches == before + 1
+    want = mha_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("t", ALIGN_T)
+def test_attention_f32_aligner_shapes(cuda, t):
+    """B=1, H=12, hd=64 at the aligner's T with lengths T - 1, 1 and T
+    (and none): the key splits and their combine, within 1e-5."""
+    assert _f32_plan(1, 12, t)[1] > 1
+    q, k, v = _f32_inputs(cuda, 1, t)
+    _held(q, k, v, None)
+    for n in (t - 1, 1, t):
+        _held(q, k, v, torch.tensor([n], device=cuda))
+
+
+def test_attention_f32_batch_ragged(cuda):
+    """B=32, T=316 (the float32 Embedder): one split, ragged lengths."""
+    assert _f32_plan(32, 12, 316)[1] == 1
+    q, k, v = _f32_inputs(cuda, 32, 316)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    lens = torch.randint(1, 317, (32,), generator=gen, device=cuda)
+    lens[:4] = torch.tensor([316, 1, 64, 65])
+    _held(q, k, v, lens)
+    _held(q, k, v, None)
+
+
+@pytest.mark.parametrize("t", [63, 64, 65, 127, 128, 129, 191, 192, 193,
+                               767, 768, 769])
+def test_attention_f32_split_and_tile_edges(cuda, t):
+    """T one either side of a 64-row query tile, and lengths one either
+    side of each key split the plan gives at B=1 (a split wholly past
+    the length adds nothing)."""
+    q, k, v = _f32_inputs(cuda, 1, t)
+    n_splits = _f32_plan(1, 12, t)[1]
+    edges = {e for k0, k1 in _f32_key_splits(t, n_splits) for e in (k0, k1)}
+    lengths = sorted({min(max(e + d, 1), t) for e in edges
+                      for d in (-1, 0, 1)})
+    for n in lengths:
+        _held(q, k, v, torch.tensor([n], device=cuda))
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("b,t", [(1, 399), (4, 316)])
+def test_attention_f32_small_head_dims(cuda, hd, b, t):
+    q, k, v = _f32_inputs(cuda, b, t, hd)
+    lens = torch.tensor([t - 1, 1, t, t // 2][:b], device=cuda)
+    _held(q, k, v, lens)
+    _held(q, k, v, None)
+
+
+@pytest.mark.parametrize("t", [199, 799])
+def test_attention_f32_length_zero_splits(cuda, t):
+    """Length 0 at B=1 (every split runs, with scale 0): v averaged over
+    T, as the plain version's."""
+    q, k, v = _f32_inputs(cuda, 1, t)
+    got = _held(q, k, v, torch.tensor([0], device=cuda))
+    mean = v[0].mean(0, keepdim=True).expand(t, 12, 64)
+    torch.testing.assert_close(got[0], mean, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_f32_split_views(cuda):
+    """At B=1, T=799 (four splits): q/k/v as slices of one fused
+    projection, a head-major tensor, a non-contiguous head dim and views
+    whose rows are not 16-byte aligned (the element-wise paths)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    t = 799
+    qkv = torch.randn(1, t, 3, 12, 64, generator=gen, device=cuda)
+    q, k, v = qkv.unbind(2)
+    heads_first = torch.randn(1, 12, t, 64, generator=gen,
+                              device=cuda).transpose(1, 2)
+    dim_strided = torch.randn(3, 1, t, 64, 12, generator=gen,
+                              device=cuda).transpose(3, 4)
+    n = t * 12 * 64
+    flat = torch.randn(3 * n + 1, generator=gen, device=cuda)
+    unaligned = [flat[1 + i * n:1 + (i + 1) * n].view(1, t, 12, 64)
+                 for i in range(3)]
+    lens = torch.tensor([t - 1], device=cuda)
+    for args in ((q, k, v), (heads_first, k, v), tuple(dim_strided),
+                 tuple(unaligned)):
+        got = mha_attention(*args, lens)
+        want = mha_attention_plain(*(x.contiguous() for x in args), lens)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t", [(1, 99), (1, 399), (1, 799), (32, 316)])
+def test_attention_f32_lse_feeds_the_backward(cuda, b, t):
+    """The log-sum-exp in natural-log units within 1e-5 (written by the
+    combine kernel where the keys are split), and the float32 backward
+    fed by it and the output within 1e-4 of its plain version."""
+    q, k, v = _f32_inputs(cuda, b, t)
+    do = torch.randn_like(q)
+    scale = 64 ** -0.5
+    lens = torch.full((b,), t - 1, device=cuda)
+    lens[-1] = 1 if b > 1 else t - 1
+    for lengths in (None, lens):
+        out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+        if lengths is not None:
+            mask = torch.arange(t, device=cuda)[None, :] < lengths[:, None]
+            logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+        torch.testing.assert_close(lse, torch.logsumexp(logits, -1),
+                                   rtol=1e-5, atol=1e-5)
+        got = mha_attention_bwd(q, k, v, do, lengths, scale, lse, out)
+        want = mha_attention_bwd_plain(q, k, v, do, lengths, scale)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t", [(1, 799), (32, 316)])
+def test_attention_f32_bit_identical(cuda, b, t):
+    """Repeats give the same bits, and 8 threads launching the same inputs
+    each on its own stream write the bytes of one serial launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    q, k, v = _f32_inputs(cuda, b, t)
+    lens = torch.full((b,), t - 1, device=cuda)
+    first = mha_attention(q, k, v, lens)
+    for _ in range(3):
+        assert torch.equal(first, mha_attention(q, k, v, lens))
+    torch.cuda.synchronize()
+
+    def run(_):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            outs = [mha_attention(q, k, v, lens) for _ in range(4)]
+        stream.synchronize()
+        return outs
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        results = list(pool.map(run, range(8)))
+    assert all(torch.equal(first, o) for outs in results for o in outs)
