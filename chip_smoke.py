@@ -9,15 +9,18 @@ Phases:
      `peppa_tpu_torch/csrc/` (seconds printed);
   2. the registers and spill bytes (`ptxas -v`) of the bf16 attention
      kernels (forward, backward dq and dkdv), the float32 forward and its
-     combine kernel, and the loss kernels; each
+     combine kernel, the float32 backward's dq and dkdv kernels, and the
+     loss kernels; each
      kernel against its plain PyTorch version on the card, at the main
      paths' shapes, with its time, the plain version's and a library
      yardstick's: the attention forward (serving shapes, T=316 and 826;
-     float32 at B=32, T=316 also replayed from a CUDA graph beside SDPA,
-     with the share of its bound),
-     the attention backward (training shapes, T=316 and 826; it and SDPA's
-     backward as the median of 7 timings, with their spread), the triplet
-     loss alone and with its gradient (B = 8, 13, 32, 1024 and two
+     float32 at B=32 and at phase 4e's B=8 (two key splits), T=316, also
+     replayed from a CUDA graph beside SDPA, with the share of its bound),
+     the attention backward (training shapes, B=8, T=316 and 826, bf16 and
+     float32, and float32 at phase 5's B=2, T=316; it and SDPA's backward
+     as the median of 7 timings, with their spread, and replayed from a
+     CUDA graph, with the share of its bound), the
+     triplet loss alone and with its gradient (B = 8, 13, 32, 1024 and two
      mixed-activity cases; timed at B = 8 and 32 back-to-back and replayed
      from a CUDA graph, with `torch.profiler`'s kernel times beside);
   3. the serving/eval forward of the base configuration (`hparams_base.yaml`:
@@ -35,6 +38,15 @@ Phases:
      the same seed to show the run is reproducible; each timed as the
      host-clock mean over micro-steps 2-16 and as the median of their
      CUDA-event times;
+ 4e. the same 16 micro-steps in float32 (`training.precision: fp32`) with
+     `audio.dropout: 0.0`: every attention through the float32 forward and
+     backward kernels (192 launches each), timed as 4a, with the TF32
+     settings in force; then kernel 1's float32 route run again on the
+     path's first inputs and the output and log-sum-exp the path saved for
+     its first backward, each against the plain version, and kernel 2's on
+     that backward's inputs: with the path's dO (within 1e-4 of the
+     largest |plain| gradient, each beside the plain version's error
+     against float64) and with a unit-scale dO;
  4c. `Trainer.fit` of the same configuration (the defaults: dropout,
      layer-drop) on `SyntheticPigData` (128 training clips, 100 in each of
      the four validation sets): sanity validation of 2 batches a loader,
@@ -127,7 +139,7 @@ last line `{"ok": true, "device": {...}}`.  With `--phases`, only those
 phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 7 brings phase 6), and the summary is their records.
 
-Launch counts are set to 0 just before each main path (3, 4a, 4b, the
+Launch counts are set to 0 just before each main path (3, 4a, 4b, 4e, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
 the battery, the targeted path and the towers of 6, each model step of
 7, the realign and the targeted path of 8) and read just after it.
@@ -192,20 +204,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, calls: int = 10, replays: int = 20) -> float:
+def graph_ms(fn, calls: int = 10, replays: int = 20, stream=None) -> float:
     """Device time of one `fn()`: `calls` calls captured once in a CUDA
     graph, replayed `replays` times between two CUDA events, so no host
-    work sits between the kernels."""
+    work sits between the kernels.  `stream`: the stream to warm up and
+    capture on (autograd runs a backward on its forward's stream, so a
+    backward alone is captured on the stream its forward ran on)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the default stream
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -243,6 +257,8 @@ RESOURCE_KERNELS = (
                   r"ILi(\d+)ELb([01])E", "{0}<hd {1}, vec {2}>"),
     ("attention", r"(attention_fwd_f32(?:_combine)?_kernel)"
                   r"ILi(\d+)ELb([01])E", "{0}<hd {1}, vec {2}>"),
+    ("attention", r"(attention_bwd_(?:dq|dkdv)_f32_kernel)"
+                  r"ILi(\d+)ELb([01])E", "{0}<hd {1}, vec {2}>"),
     ("loss", r"(loss_cluster_kernel)ILi(\d)ELb([01])E", "{0}<R {1}, grad {2}>"),
     ("loss", r"(loss_tiles_kernel)ILb([01])E", "{0}<grad {1}>"),
     ("loss", r"(loss_(?:rows|grad)_kernel)", "{0}"),
@@ -252,8 +268,9 @@ RESOURCE_KERNELS = (
 def print_kernel_resources() -> None:
     """Registers and spill bytes of each bf16 attention kernel
     instantiation (forward, backward dq and dkdv; head dim, vector path),
-    of the float32 forward and its combine kernel, and of each loss
-    kernel, from `ptxas -v` in this process's build."""
+    of the float32 forward and its combine kernel, of the float32
+    backward's dq and dkdv kernels, and of each loss kernel, from `ptxas
+    -v` in this process's build."""
     from peppa_tpu_torch.ops.cuda import build
 
     for source in ("attention", "loss"):
@@ -292,7 +309,7 @@ def f32_attention_times(b: int, t: int, length) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
+    from peppa_tpu_torch.ops.cuda.attention import (_f32_plan, mha_attention,
                                                     mha_attention_plain)
 
     h, hd = 12, 64
@@ -320,18 +337,113 @@ def f32_attention_times(b: int, t: int, length) -> dict:
     bms, by = bound(4 * b * t * h * hd * 4 + (0 if length is None else 4 * b),
                     4 * b * h * t * n_keys * hd, "float32")
     row = {"B": b, "T": t, "dtype": "float32", "length": length,
-           "ms": time_ms(kernel), "device_ms": graph_ms(kernel),
+           "key_splits": _f32_plan(b, h, t)[1], "ms": time_ms(kernel), "device_ms": graph_ms(kernel),
            "plain_ms": time_ms(lambda: mha_attention_plain(q, k, v, lengths),
                                iters=5),
            "library_ms": time_ms(sdpa), "library_device_ms": graph_ms(sdpa),
            "bound_ms": bms, "bound_by": by, "max_abs_err": err}
     row["bound_share"] = bms / row["device_ms"]
-    print(f"attention float32 B={b} T={t} (length {length}): kernel "
+    print(f"attention float32 B={b} T={t} (length {length}, "
+          f"{row['key_splits']} key splits): kernel "
           f"{row['ms']:.4f} ms back-to-back, {row['device_ms']:.4f} ms "
           f"device; sdpa {row['library_ms']:.4f} / "
           f"{row['library_device_ms']:.4f} ms; plain {row['plain_ms']:.4f} "
           f"ms; bound {bms:.4f} ms ({by}), {row['bound_share']:.1%} of it "
           f"in device time; max|d|={err:.3g} (tol {TOL_ATTN['float32']})")
+    return row
+
+
+def _bwd_error(got, want, what: str, atol=None) -> float:
+    """max |kernel - plain| over kernel 2's dq, dk, dv; prints each and
+    raises where an element is off by more than atol + tol|plain| (tol
+    from TOL_ATTN_BWD for their dtype; atol: tol unless given)."""
+    err = 0.0
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        tol = TOL_ATTN_BWD[str(w.dtype).split(".")[1]]
+        d = (g.float() - w.float()).abs()
+        near = tol if atol is None else atol
+        err = max(err, d.max().item())
+        print(f"attention bwd {what} {gname}: max|d|={d.max().item():.3g} "
+              f"(tol {near:.3g} + {tol}|plain|)")
+        if not bool((d <= near + tol * w.float().abs()).all()):
+            raise AssertionError(f"attention bwd {what} {gname}: "
+                                 f"{d.max().item()}")
+    return err
+
+
+def _check_bwd(q, k, v, do, lengths, what: str) -> float:
+    """Kernel 2 on the forward kernel's output and log-sum-exp against its
+    plain version (`_bwd_error`)."""
+    from peppa_tpu_torch.ops.cuda.attention import (_launch,
+                                                    mha_attention_bwd,
+                                                    mha_attention_bwd_plain)
+
+    scale = q.shape[-1] ** -0.5
+    out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
+    return _bwd_error(mha_attention_bwd(q, k, v, do, lengths, scale, lse, out),
+                      mha_attention_bwd_plain(q, k, v, do, lengths, scale),
+                      what)
+
+
+def attention_bwd_times(q, k, v, do, err: float) -> dict:
+    """Kernel 2 at the training path's call (no key lengths) on (B, T, 12,
+    64) q, k, v, dO already held against its plain version (`err`), fed by
+    the forward kernel's output and log-sum-exp: the median of 7
+    back-to-back readings (`median_ms`, the host's launch cost included)
+    with their range, and replayed from a CUDA graph (`graph_ms`, device
+    time), beside SDPA's backward on the same inputs timed both ways (its
+    back-to-back readings spread) and the plain version; with the bound
+    and the share of it reached in device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from peppa_tpu_torch.ops.cuda.attention import (_launch,
+                                                    mha_attention_bwd,
+                                                    mha_attention_bwd_plain)
+
+    b, t, h, hd = q.shape
+    name = str(q.dtype).split(".")[1]
+    scale = hd ** -0.5
+    out, lse = _launch(q, k, v, None, scale, with_lse=True)
+
+    def kernel():
+        mha_attention_bwd(q, k, v, do, None, scale, lse, out)
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd = F.scaled_dot_product_attention(qt, kt, vt)
+    # a forward whose backward can be captured: its leaves and their
+    # autograd nodes made on the capture stream, so nothing in the
+    # backward waits on the default stream
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+        fwd_side = F.scaled_dot_product_attention(*leaves)
+    torch.cuda.current_stream().wait_stream(side)
+
+    # q, k, v, dO in and dQ, dK, dV out; five products of T^2 hd
+    bms, by = bound(7 * b * t * h * hd * q.element_size(),
+                    10 * b * h * t * t * hd, name)
+    ms, lo, hi = median_ms(kernel)
+    lib_ms, lib_lo, lib_hi = median_ms(lambda: torch.autograd.grad(
+        fwd, (qt, kt, vt), dot, retain_graph=True))
+    row = {"B": b, "T": t, "dtype": name,
+           "ms": ms, "ms_range": [lo, hi], "device_ms": graph_ms(kernel),
+           "plain_ms": time_ms(lambda: mha_attention_bwd_plain(
+               q, k, v, do, None, scale), iters=5),
+           "library_ms": lib_ms, "library_ms_range": [lib_lo, lib_hi],
+           "library_device_ms": graph_ms(lambda: torch.autograd.grad(
+               fwd_side, leaves, dot, retain_graph=True), stream=side),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+    row["bound_share"] = bms / row["device_ms"]
+    print(f"attention bwd {name} B={b} T={t}: kernel {ms:.4f} ms "
+          f"back-to-back ({lo:.4f}-{hi:.4f}), {row['device_ms']:.4f} ms "
+          f"device; sdpa backward {lib_ms:.4f} ({lib_lo:.4f}-{lib_hi:.4f}) "
+          f"/ {row['library_device_ms']:.4f} ms; plain {row['plain_ms']:.4f} "
+          f"ms; bound {bms:.4f} ms ({by}), {row['bound_share']:.1%} of it "
+          f"in device time")
     return row
 
 
@@ -382,9 +494,12 @@ def check_attention(report: dict) -> None:
                 rows.append({"B": b, "T": t, "dtype": name, "ms": ms,
                              "plain_ms": plain_ms, "library_ms": lib_ms,
                              "bound_ms": bms, "bound_by": by})
-            elif t == 316:  # the float32 Embedder's call (phase 7)
+            elif t == 316:  # the float32 Embedder's call (phase 7), and
+                # float32 training's (phase 4e: two key splits at B=8)
                 rows.append({**f32_attention_times(b, t, None),
                              "path": "results_embedder_f32"})
+                rows.append({**f32_attention_times(TRAIN_B, t, None),
+                             "path": "train_f32"})
     # the kernel's line: T=316 (the 2.3 s bucket), with the rest beside it
     report["attention"] = {**{k: v for k, v in rows[0].items() if k != "T"},
                            "max_abs_err": worst, "shapes": rows}
@@ -393,15 +508,10 @@ def check_attention(report: dict) -> None:
 def check_attention_bwd(report: dict) -> None:
     import torch
 
-    from peppa_tpu_torch.ops.cuda.attention import (_launch,
-                                                    mha_attention_bwd,
-                                                    mha_attention_bwd_plain)
-
     b, h, hd = TRAIN_B, 12, 64
-    scale = hd ** -0.5
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
-    rows = []  # bf16 times at each T
+    rows = []  # at each T: bf16, then float32 (phase 4e's call at T=316)
     for t in (316, 826):
         ragged = torch.randint(1, t + 1, (b,), generator=gen, device="cuda",
                                dtype=torch.int32)
@@ -412,53 +522,22 @@ def check_attention_bwd(report: dict) -> None:
             q, k, v, do = (torch.randn(b, t, h, hd, generator=gen,
                                        device="cuda").to(dtype)
                            for _ in range(4))
-            tol = TOL_ATTN_BWD[name]
-            for lengths in (None, ragged):
-                out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
-                got = mha_attention_bwd(q, k, v, do, lengths, scale, lse, out)
-                want = mha_attention_bwd_plain(q, k, v, do, lengths, scale)
-                torch.cuda.synchronize()
-                tag = "ragged" if lengths is not None else "full"
-                for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-                    d = (g.float() - w.float()).abs()
-                    err = d.max().item()
-                    ok = bool((d <= tol + tol * w.float().abs()).all())
-                    print(f"attention bwd T={t} {name} {tag} {gname}: "
-                          f"max|d|={err:.3g} (tol {tol} + {tol}|plain|)")
-                    if not ok:
-                        raise AssertionError(
-                            f"attention bwd {name} T={t} {tag} {gname}: {err}")
-                    if name == "bfloat16":
-                        worst = max(worst, err)
-            # times at the training path's call: no lengths; the kernel and
-            # SDPA's backward as medians of 7 timings (SDPA's spreads)
-            out, lse = _launch(q, k, v, None, scale, with_lse=True)
-            ms, lo, hi = median_ms(lambda: mha_attention_bwd(
-                q, k, v, do, None, scale, lse, out))
-            plain_ms = time_ms(lambda: mha_attention_bwd_plain(
-                q, k, v, do, None, scale), iters=5)
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            sdpa = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
-            dot = do.transpose(1, 2)
-            lib_ms, lib_lo, lib_hi = median_ms(lambda: torch.autograd.grad(
-                sdpa, (qt, kt, vt), dot, retain_graph=True))
-            elem = q.element_size()
-            n_bytes = 7 * b * t * h * hd * elem  # q, k, v, dO in; dQ, dK, dV
-            flops = 10 * b * h * t * t * hd  # five products of T^2 hd
-            bms, by = bound(n_bytes, flops, name)
-            print(f"attention bwd T={t} {name}: kernel {ms:.4f} ms "
-                  f"({lo:.4f}-{hi:.4f}), plain {plain_ms:.4f} ms, sdpa "
-                  f"backward {lib_ms:.4f} ms ({lib_lo:.4f}-{lib_hi:.4f}), "
-                  f"bound {bms:.4f} ms ({by})")
+            err = max(_check_bwd(q, k, v, do, lengths, f"T={t} {name} {tag}")
+                      for lengths, tag in ((None, "full"), (ragged, "ragged")))
+            row = attention_bwd_times(q, k, v, do, err)
             if dtype == torch.bfloat16:
-                rows.append({"T": t, "ms": ms, "ms_range": [lo, hi],
-                             "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "library_ms_range": [lib_lo, lib_hi],
-                             "bound_ms": bms, "bound_by": by})
-            del sdpa
+                worst = max(worst, err)
+            else:
+                row["path"] = "train_f32"
+            rows.append(row)
+    # float32 at phase 5's card-vs-CPU micro-step (B=2: 120 blocks a grid)
+    q, k, v, do = (torch.randn(2, 316, h, hd, generator=gen, device="cuda")
+                   for _ in range(4))
+    err = _check_bwd(q, k, v, do, None, "B=2 T=316 float32 full")
+    rows.append({**attention_bwd_times(q, k, v, do, err),
+                 "path": "card_vs_cpu"})
     report["attention_bwd"] = {
-        **{k: v for k, v in rows[0].items() if k != "T"},
+        **{k: v for k, v in rows[0].items() if k not in ("B", "T", "dtype")},
         "max_abs_err": worst, "shapes": rows}
 
 
@@ -748,21 +827,35 @@ def run_slice(report: dict, card: str) -> None:
 
 
 # ------------------------------------------------------------------ phase 4
-def run_training(report: dict, card: str, deterministic: bool) -> None:
+TRAIN_TAGS = {"deterministic": "train_deterministic",  # 4a
+              "default": "train_default",  # 4b
+              "f32": "train_f32"}  # 4e
+
+
+def run_training(report: dict, card: str, mode: str) -> None:
     """2 optimizer steps (16 micro-steps) of the base configuration at full
-    width and depth, bf16, micro-batch 8 of 2.3 s clips."""
+    width and depth, micro-batch 8 of 2.3 s clips: bf16 with `audio.dropout:
+    0.0` ("deterministic", 4a) or the defaults ("default", 4b), or float32
+    with `audio.dropout: 0.0` ("f32", 4e: kernels 1 and 2 in float32, held
+    against their plain versions on the path's first inputs)."""
     import numpy as np
     import torch
 
     from peppa_tpu_torch.config import default_config
     from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import attention
     from peppa_tpu_torch.training.state import TrainState
     from peppa_tpu_torch.training.step import train_step
 
-    tag = "train_deterministic" if deterministic else "train_default"
+    tag = TRAIN_TAGS[mode]
+    deterministic = mode != "default"
     cfg = default_config()
     if deterministic:
         cfg.audio.dropout = 0.0  # every stochastic rate: attention kernels
+    if mode == "f32":
+        cfg.training.precision = "fp32"
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
     k = cfg.training.accumulate_grad_batches
     if TRAIN_MICRO_STEPS != 2 * k:
         raise AssertionError(f"accumulate_grad_batches {k}: expected 8")
@@ -774,6 +867,22 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
     start = {n: p.detach().clone() for n, p in state.params.items()}
     stats0 = {n: b.clone() for n, b in model.named_buffers()
               if n.endswith(("running_mean", "running_var"))}
+    kept = {}  # the float32 forward's and backward's first inputs here
+
+    def keep_first(name):
+        def wrap(real):
+            def run(*args, **kw):
+                if name not in kept:
+                    kept[name] = [a.detach().clone()
+                                  if isinstance(a, torch.Tensor) else a
+                                  for a in args]
+                return real(*args, **kw)
+            return run
+        return wrap
+
+    undos = ([_patch(attention, name, keep_first(name))
+              for name in ("_launch", "_launch_bwd")] if mode == "f32"
+             else [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -799,6 +908,8 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = _counts()
+    for undo in undos:
+        undo()
     ms = (t_end - t1) / (TRAIN_MICRO_STEPS - 1) * 1e3
     step_ms = [a.elapsed_time(b) for a, b in events]
     ev_ms = float(np.median(step_ms))
@@ -819,6 +930,8 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
           f"{TRAIN_B / ms * 1e3:.2f} train clips/s; CUDA events: median "
           f"{ev_ms:.2f} ms ({min(step_ms):.2f}-{max(step_ms):.2f}; the 2 "
           f"optimizer steps inside) ({card})")
+    print(f"{tag}: {cfg.training.precision}, TF32 in force: matmul "
+          f"{tf32['matmul']}, cudnn {tf32['cudnn']}")
     n_layers = model.audio_encoder.wav2vec2.cfg.num_layers
     n_attn = n_layers * TRAIN_MICRO_STEPS if deterministic else 0
     want = {"attention_fwd": n_attn, "attention_bwd": n_attn,
@@ -835,7 +948,13 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
                    "event_ms_per_micro_step_median": ev_ms,
                    "event_ms_range": [min(step_ms), max(step_ms)],
                    "train_clips_per_s": TRAIN_B / ms * 1e3,
-                   "peak_memory_gib": peak, "losses": losses}
+                   "peak_memory_gib": peak, "precision":
+                   cfg.training.precision, "allow_tf32": tf32,
+                   "losses": losses}
+    if mode == "f32":
+        report[tag]["attention_held"] = _hold_fwd_f32(kept["_launch"], tag)
+        report[tag]["attention_bwd_held"] = _hold_bwd_f32(
+            kept["_launch_bwd"], tag)
     if not deterministic:
         if losses[0] == report["train_deterministic"]["losses"][0]:
             raise AssertionError("dropout had no effect on the loss")
@@ -849,6 +968,120 @@ def run_training(report: dict, card: str, deterministic: bool) -> None:
         if again != losses[:2]:
             raise AssertionError(f"{tag} is not reproducible: {again}")
     del state, model
+
+
+def _fwd_f32_error(q, k, v, lengths, scale, out, lse, what: str) -> float:
+    """max |kernel - plain| of kernel 1's float32 output `out` and
+    natural-log log-sum-exp `lse` for q, k, v; raises where the output is
+    off by more than TOL_ATTN or the lse by more than it + it|lse|."""
+    import torch
+
+    from peppa_tpu_torch.ops.cuda.attention import mha_attention_plain
+
+    tol = TOL_ATTN["float32"]
+    t = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if lengths is not None:
+        mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+        logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+    want = torch.logsumexp(logits, -1)
+    err = (out - mha_attention_plain(q, k, v, lengths, scale)).abs().max()
+    lse_d = (lse - want).abs()
+    print(f"{what}: attention float32 at {list(q.shape)} (lengths "
+          f"{'none' if lengths is None else 'given'}): output max|d|="
+          f"{err.item():.3g} (tol {tol}), lse max|d|={lse_d.max().item():.3g} "
+          f"(tol {tol} + {tol}|lse|)")
+    if not err.item() <= tol or not bool((lse_d <= tol + tol * want.abs())
+                                         .all()):
+        raise AssertionError(f"{what}: attention float32 output "
+                             f"{err.item()}, lse {lse_d.max().item()}")
+    return err.item()
+
+
+def _hold_fwd_f32(args: list, tag: str) -> dict:
+    """Kernel 1's float32 route run again on the first inputs a path gave
+    it (`_launch`'s arguments: q, k, v, lengths, scale), with the path's
+    key splits (`_f32_plan`), held against its plain version."""
+    import torch
+
+    from peppa_tpu_torch.ops.cuda.attention import _f32_plan, _launch
+
+    q, k, v, lengths, scale = args[:5]
+    if q.dtype != torch.float32:
+        raise AssertionError(f"{tag}: the forward ran in {q.dtype}")
+    b, t, h, _ = q.shape
+    splits = _f32_plan(b, h, t)[1]
+    out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
+    err = _fwd_f32_error(q, k, v, lengths, scale, out, lse,
+                         f"{tag} ({splits} key splits)")
+    return {"shape": list(q.shape), "key_splits": splits,
+            "max_abs_err": err}
+
+
+def _bwd_f64(q, k, v, do, lengths, scale) -> tuple:
+    """(dq, dk, dv) of the attention in float64 by autograd: the reference
+    that shows how far float32 itself, kernel or plain, is from them."""
+    import torch
+
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if lengths is not None:
+        t = q.shape[1]
+        mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+        logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+    return torch.autograd.grad(out, (q, k, v), do.double())
+
+
+def _hold_bwd_f32(args: list, tag: str) -> dict:
+    """Kernel 2's float32 route against its plain version on the inputs a
+    path gave it (`_launch_bwd`'s arguments: q, k, v, dO, the forward's
+    lse and output, lengths, scale).  The path's dO (dL/dO of a mean loss)
+    makes gradients far below 1, so they are held within 1e-4 of the
+    largest |plain| of the three + 1e-4|plain|, and each one's error is
+    given beside that of the plain version, both against float64; then the
+    same q, k, v, lse and output with a unit-scale dO, at phase 2's 1e-4 +
+    1e-4|plain|.  The output and lse the path saved are held first."""
+    import torch
+
+    from peppa_tpu_torch.ops.cuda.attention import (mha_attention_bwd,
+                                                    mha_attention_bwd_plain)
+
+    q, k, v, do, lse, out, lengths, scale = args
+    if q.dtype != torch.float32:
+        raise AssertionError(f"{tag}: the backward ran in {q.dtype}")
+    fwd_err = _fwd_f32_error(q, k, v, lengths, scale, out, lse,
+                             f"{tag} (the backward's saved output)")
+    got = mha_attention_bwd(q, k, v, do, lengths, scale, lse, out)
+    want = mha_attention_bwd_plain(q, k, v, do, lengths, scale)
+    largest = max(w.abs().max().item() for w in want)
+    tol = TOL_ATTN_BWD["float32"]
+    err = _bwd_error(got, want, f"{tag} path's dO", atol=tol * largest)
+    exact = _bwd_f64(q, k, v, do, lengths, scale)
+    against_f64 = {}
+    for gname, g, w, x in zip(("dq", "dk", "dv"), got, want, exact):
+        against_f64[gname] = {"max_abs": x.abs().max().item(),
+                              "kernel": (g.double() - x).abs().max().item(),
+                              "plain": (w.double() - x).abs().max().item()}
+        print(f"{tag}: {gname} against float64: max|f64| "
+              f"{against_f64[gname]['max_abs']:.3g}, kernel max|d| "
+              f"{against_f64[gname]['kernel']:.3g}, plain max|d| "
+              f"{against_f64[gname]['plain']:.3g}")
+    del exact
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    unit = torch.randn(do.shape, generator=gen, device="cuda")
+    unit_err = _bwd_error(
+        mha_attention_bwd(q, k, v, unit, lengths, scale, lse, out),
+        mha_attention_bwd_plain(q, k, v, unit, lengths, scale),
+        f"{tag} unit-scale dO")
+    print(f"{tag}: attention bwd float32 at the path's {list(q.shape)}: "
+          f"max|d|={err:.3g} with its dO (max|plain|={largest:.3g}, "
+          f"max|d|/max|plain|={err / max(largest, 1e-30):.3g}), "
+          f"{unit_err:.3g} with a unit-scale dO")
+    return {"shape": list(q.shape), "max_abs_err": err,
+            "max_abs_plain": largest, "against_f64": against_f64,
+            "max_abs_err_unit_do": unit_err,
+            "saved_output_max_abs_err": fwd_err}
 
 
 # ----------------------------------------------------------------- phase 4c
@@ -3080,8 +3313,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
-                        choices=("2", "3", "4a", "4b", "4c", "4d", "6", "7",
-                                 "8", "5"),
+                        choices=("2", "3", "4a", "4b", "4e", "4c", "4d",
+                                 "6", "7", "8", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -3109,8 +3342,9 @@ def main() -> int:
                              check_attention_bwd(report),
                              check_loss(report))),
               ("3", lambda: run_slice(report, card)),
-              ("4a", lambda: run_training(report, card, True)),
-              ("4b", lambda: run_training(report, card, False)),
+              ("4a", lambda: run_training(report, card, "deterministic")),
+              ("4b", lambda: run_training(report, card, "default")),
+              ("4e", lambda: run_training(report, card, "f32")),
               ("4c", lambda: run_trainer(report, card)),
               ("4d", lambda: run_pipeline(report, card, root)),
               ("6", lambda: run_evaluation(report, card, root)),
@@ -3138,7 +3372,8 @@ def main() -> int:
     if len(chosen) < len(phases):  # a part: its records, no summary
         print(json.dumps({k: v for k, v in report.items()
                           if k in ("launches", "evaluation", "results",
-                                   "prep", "attention")},
+                                   "prep", "attention", "attention_bwd",
+                                   *TRAIN_TAGS.values())},
                          default=str))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3165,7 +3400,7 @@ def main() -> int:
                         **report[source_report]})
     print(json.dumps({"kernels": kernels}))
     train = {tag: {k: v for k, v in report[tag].items() if k != "losses"}
-             for tag in ("train_deterministic", "train_default")}
+             for tag in TRAIN_TAGS.values()}
     print(json.dumps({"encode_pairs_per_s": report["encode_pairs_per_s"],
                       "batch": 32, "bucket_s": 2.3,
                       "audio_tower_ms_6s": report["audio_tower_ms_6s"],

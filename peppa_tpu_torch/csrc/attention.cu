@@ -92,12 +92,12 @@
 // training shapes (B=8, H=12, hd=64, bf16): q, k, v, dO read and dQ, dK, dV
 // written once, 7*B*T*H*hd elements (27 MB, 8.1 us at T=316); the work is
 // 10*B*H*T^2*hd operations (5 products of T^2*hd: 41.9 GFLOP, 42.4 us on
-// the tensor cores at T=826), so bytes bound T=316 and operations T=826.
-// Two grids without atomics: a query-tile grid writes dQ and D, a key-tile
-// grid loops over the query tiles for dK and dV.  The bf16 pair (its own
-// section below) takes D = rowsum(dO o O) from the forward's output; the
-// float32 pair, on the CUDA cores, computes D = rowsum(dP o P) in a first
-// pass over the keys.
+// the tensor cores at T=826), so bytes bound T=316 and operations T=826;
+// in float32, operations at 67 TF/s at both.  Two grids without atomics: a
+// query-tile grid writes dQ and D, a key-tile grid loops over the query
+// tiles for dK and dV.  Both pairs take D = rowsum(dO o O) from the
+// forward's output (the bf16 dkdv reads the dq kernel's float32 rowsum(dP
+// o P) instead), so S and dP are formed once in each kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -873,270 +873,14 @@ attention_fwd_f32_combine_kernel(const float* __restrict__ part,
 
 // ----------------------------------------------------------- backward
 //
-// Two kernels for each type.  float32, on the CUDA cores, four threads per
-// row (each holds HD/4 dims as float4 chunks part, part + 4, ...; a row's
-// dot products are summed over its four lanes by two shuffles):
-//   dq kernel, grid (B*H, ceil(T/64)) over query tiles: pass 1 over the
-//     keys gives D_i = sum_j P_ij dP_ij, pass 2 accumulates
-//     dQ_i = scale * sum_j P_ij (dP_ij - D_i) k_j; writes dQ and D;
-//   dkdv kernel, grid (B*H, ceil(T/64)) over key tiles, a loop over all
-//     query tiles: dV_j = sum_i P_ij dO_i, dK_j = scale * sum_i dS_ij q_i.
-// P_ij = exp(scale q_i.k_j - lse_i) with the forward's natural-log lse.
-// bfloat16 on the tensor cores: next section.  No atomics in either: every
-// output element is written by one thread, in a fixed order, so results
-// are bit-identical from run to run.
-
-constexpr int kParts = 4;                  // threads per row
-constexpr int kBwdRows = 64;               // rows per block (float32)
-constexpr int kBwdThreads = kBwdRows * kParts;
-
-// sum over the kParts adjacent lanes of a row (identical in all four)
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-// dim of element e of this thread's chunk c
-__device__ __forceinline__ int dim_of(int part, int c, int e) {
-  return (part + kParts * c) * 4 + e;
-}
-
-// this thread's HD/4 dims of one (b, t, h) row, as float (0 when !valid)
-template <int HD>
-__device__ __forceinline__ void load_part(float (&r)[HD / 4], const float* p,
-                                          long long stride_d, int part,
-                                          bool valid) {
-#pragma unroll
-  for (int c = 0; c < HD / 16; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      r[4 * c + e] = valid ? (p[dim_of(part, c, e) * stride_d]) : 0.f;
-    }
-  }
-}
-
-// partial dot of this thread's dims with a shared-memory row
-template <int HD>
-__device__ __forceinline__ float dot_part(const float (&r)[HD / 4],
-                                          const float* row, int part) {
-  const float4* rv = reinterpret_cast<const float4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < HD / 16; ++c) {
-    const float4 x = rv[part + kParts * c];
-    acc = fmaf(r[4 * c + 0], x.x, acc);
-    acc = fmaf(r[4 * c + 1], x.y, acc);
-    acc = fmaf(r[4 * c + 2], x.z, acc);
-    acc = fmaf(r[4 * c + 3], x.w, acc);
-  }
-  return acc;
-}
-
-// acc += a * row over this thread's dims
-template <int HD>
-__device__ __forceinline__ void axpy_part(float (&acc)[HD / 4], float a,
-                                          const float* row, int part) {
-  const float4* rv = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int c = 0; c < HD / 16; ++c) {
-    const float4 x = rv[part + kParts * c];
-    acc[4 * c + 0] = fmaf(a, x.x, acc[4 * c + 0]);
-    acc[4 * c + 1] = fmaf(a, x.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(a, x.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(a, x.w, acc[4 * c + 3]);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_part(float* p, long long stride_d,
-                                           const float (&r)[HD / 4], float mul,
-                                           int part) {
-#pragma unroll
-  for (int c = 0; c < HD / 16; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      p[dim_of(part, c, e) * stride_d] = (r[4 * c + e] * mul);
-    }
-  }
-}
-
-// rows r0 .. r0 + 63 of one (b, h) slice into shared memory, as float
-// (zero past `limit`)
-template <int HD>
-__device__ __forceinline__ void stage_rows(float (*dst)[HD], const float* base,
-                                           Strides s, int r0, int limit) {
-  for (int idx = threadIdx.x; idx < kBwdRows * HD; idx += kBwdThreads) {
-    const int j = idx / HD;
-    const int d = idx % HD;
-    const int r = r0 + j;
-    dst[j][d] = r < limit ? (base[r * s.t + d * s.d]) : 0.f;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kBwdThreads)
-attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const int* __restrict__ lengths, float* __restrict__ dq,
-                        float* __restrict__ delta, int n_heads, int seq,
-                        Strides sq, Strides sk, Strides sv, Strides sdo,
-                        Strides sdq, float scale) {
-  __shared__ __align__(16) float ks[kBwdRows][HD];
-  __shared__ __align__(16) float vs[kBwdRows][HD];
-
-  const int b = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int part = threadIdx.x % kParts;
-  const int row = blockIdx.y * kBwdRows + threadIdx.x / kParts;
-  const bool active = row < seq;
-  const int len = lengths != nullptr ? lengths[b] : seq;
-  const int n_keys = min(len, seq);
-
-  float acc[HD / 4];
-#pragma unroll
-  for (int i = 0; i < HD / 4; ++i) acc[i] = 0.f;
-  float* dqp = dq + b * sdq.b + row * sdq.t + h * sdq.h;
-  if (n_keys < 1) {
-    // length 0: the scores are the constant -1e30, so dQ = 0
-    if (active) {
-      store_part<HD>(dqp, sdq.d, acc, 0.f, part);
-      if (part == 0) delta[blockIdx.x * seq + row] = 0.f;
-    }
-    return;
-  }
-
-  float qr[HD / 4], dor[HD / 4];
-  load_part<HD>(qr, q + b * sq.b + row * sq.t + h * sq.h, sq.d, part,
-                   active);
-  load_part<HD>(dor, dout + b * sdo.b + row * sdo.t + h * sdo.h, sdo.d,
-                   part, active);
-  const float row_lse = active ? lse[blockIdx.x * seq + row] : 0.f;
-  const float* kbase = k + b * sk.b + h * sk.h;
-  const float* vbase = v + b * sv.b + h * sv.h;
-
-  // pass 1: D = rowsum(dP o P), in float32 from P and dP
-  float dsum = 0.f;
-  for (int k0 = 0; k0 < n_keys; k0 += kBwdRows) {
-    stage_rows<HD>(ks, kbase, sk, k0, n_keys);
-    stage_rows<HD>(vs, vbase, sv, k0, n_keys);
-    __syncthreads();
-    const int tile = min(kBwdRows, n_keys - k0);
-    for (int j = 0; j < tile; ++j) {
-      const float s = row_sum(dot_part<HD>(qr, ks[j], part));
-      const float dp = row_sum(dot_part<HD>(dor, vs[j], part));
-      dsum = fmaf(expf(s * scale - row_lse), dp, dsum);
-    }
-    __syncthreads();
-  }
-  // pass 2: dQ = scale * dS K
-  for (int k0 = 0; k0 < n_keys; k0 += kBwdRows) {
-    stage_rows<HD>(ks, kbase, sk, k0, n_keys);
-    stage_rows<HD>(vs, vbase, sv, k0, n_keys);
-    __syncthreads();
-    const int tile = min(kBwdRows, n_keys - k0);
-    for (int j = 0; j < tile; ++j) {
-      const float s = row_sum(dot_part<HD>(qr, ks[j], part));
-      const float dp = row_sum(dot_part<HD>(dor, vs[j], part));
-      const float p = expf(s * scale - row_lse);
-      axpy_part<HD>(acc, p * (dp - dsum), ks[j], part);
-    }
-    __syncthreads();
-  }
-  if (active) {
-    store_part<HD>(dqp, sdq.d, acc, scale, part);
-    if (part == 0) delta[blockIdx.x * seq + row] = dsum;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kBwdThreads)
-attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const int* __restrict__ lengths, float* __restrict__ dk,
-                          float* __restrict__ dv, int n_heads, int seq,
-                          Strides sq, Strides sk, Strides sv, Strides sdo,
-                          Strides sdk, Strides sdv, float scale) {
-  __shared__ __align__(16) float qs[kBwdRows][HD];
-  __shared__ __align__(16) float dos[kBwdRows][HD];
-  __shared__ float lse_s[kBwdRows];
-  __shared__ float delta_s[kBwdRows];
-
-  const int b = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int part = threadIdx.x % kParts;
-  const int key = blockIdx.y * kBwdRows + threadIdx.x / kParts;
-  const bool active = key < seq;
-  const int len = lengths != nullptr ? lengths[b] : seq;
-  const bool all_masked = len < 1;
-  // keys the rows attend to: the valid ones, or all T when none is valid
-  const int n_keys = all_masked ? seq : min(len, seq);
-  const bool valid = key < n_keys;
-
-  float acc_k[HD / 4], acc_v[HD / 4];
-#pragma unroll
-  for (int i = 0; i < HD / 4; ++i) acc_k[i] = acc_v[i] = 0.f;
-  float* dkp = dk + b * sdk.b + key * sdk.t + h * sdk.h;
-  float* dvp = dv + b * sdv.b + key * sdv.t + h * sdv.h;
-  if (blockIdx.y * kBwdRows >= n_keys) {
-    // masked keys: no row attends to them, dK = dV = 0 exactly
-    if (active) {
-      store_part<HD>(dkp, sdk.d, acc_k, 0.f, part);
-      store_part<HD>(dvp, sdv.d, acc_v, 0.f, part);
-    }
-    return;
-  }
-
-  float kr[HD / 4], vr[HD / 4];
-  load_part<HD>(kr, k + b * sk.b + key * sk.t + h * sk.h, sk.d, part,
-                   valid);
-  load_part<HD>(vr, v + b * sv.b + key * sv.t + h * sv.h, sv.d, part,
-                   valid);
-  const float* qbase = q + b * sq.b + h * sq.h;
-  const float* dobase = dout + b * sdo.b + h * sdo.h;
-  const float uniform = 1.f / seq;  // P of a length-0 row
-
-  for (int q0 = 0; q0 < seq; q0 += kBwdRows) {
-    stage_rows<HD>(qs, qbase, sq, q0, seq);
-    stage_rows<HD>(dos, dobase, sdo, q0, seq);
-    if (threadIdx.x < kBwdRows) {
-      const int r = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = r < seq ? lse[blockIdx.x * seq + r] : 0.f;
-      delta_s[threadIdx.x] = r < seq ? delta[blockIdx.x * seq + r] : 0.f;
-    }
-    __syncthreads();
-    const int tile = min(kBwdRows, seq - q0);
-    for (int i = 0; i < tile; ++i) {
-      const float s = row_sum(dot_part<HD>(kr, qs[i], part));
-      const float dp = row_sum(dot_part<HD>(vr, dos[i], part));
-      float p, ds;
-      if (all_masked) {
-        // length 0: P uniform over the T keys; the scores do not depend on
-        // q or k, so dS = 0
-        p = uniform;
-        ds = 0.f;
-      } else {
-        p = valid ? expf(s * scale - lse_s[i]) : 0.f;
-        ds = p * (dp - delta_s[i]);
-      }
-      axpy_part<HD>(acc_v, p, dos[i], part);
-      axpy_part<HD>(acc_k, ds, qs[i], part);
-    }
-    __syncthreads();
-  }
-  if (active) {
-    store_part<HD>(dkp, sdk.d, acc_k, scale, part);
-    store_part<HD>(dvp, sdv.d, acc_v, 1.f, part);
-  }
-}
-
-// ------------------------------------------------- backward, bfloat16
+// Two kernels for each type, in two grids without atomics: a query-tile
+// grid writes dQ (and D for the other grid), a key-tile grid loops over the
+// query tiles for dK and dV.  Every output element is written by one
+// thread, in a fixed order, so results are bit-identical from run to run.
+// The float32 pair has its own section after this one.
 //
-// The same two grids on the tensor cores (`mma.sync` m16n8k16, bf16
-// operands, float32 accumulation), built as the bf16 forward is:
+// bfloat16, on the tensor cores (`mma.sync` m16n8k16, bf16 operands,
+// float32 accumulation), built as the bf16 forward is:
 //   dq kernel, over query tiles: D_i = dO_i . O_i in float32 from the
 //     forward's output O (hd operations a row), then one pass over the
 //     keys: S = q k^T, dP = dO V^T, P, dS = P o (dP - D), dQ += dS K;
@@ -1628,6 +1372,516 @@ attention_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
                       seq, lane);
 }
 
+// ------------------------------------------------- backward, float32
+//
+// Replaces `_bwd_kernel` for float32 inputs (the float32 training path:
+// `training.precision: 32` with `audio.dropout: 0.0`; the card-vs-CPU
+// checks).  Full float32 FMAs on the CUDA cores (no TF32: this route is
+// the port's precision reference), in the two grids above, built as the
+// float32 forward is: 64-row tiles of 128 threads, each thread owning 4
+// rows x 8 columns of a 64 x 64 score tile (rows rg + 16a of the block's
+// resident tile, columns cg + 8i of the streamed one) and 4 rows x HD/8
+// dims of its outputs.
+//   dq kernel, over query tiles: D_i = dO_i . O_i from the forward's
+//     float32 output (hd FMAs a row; written to `delta` for dkdv), then
+//     one pass over the keys: S = q K^T, dP = dO V^T, P, dS = P o (dP -
+//     D) into shared memory as dS^T, dQ += dS K;
+//   dkdv kernel, over key tiles, one pass over the queries (with their lse
+//     and D): S^T = K q^T, P^T into shared memory, dP^T = V dO^T, dS^T,
+//     dV += P^T dO, then dS^T into the same buffer, dK += dS^T q.
+// 7 products of T^2*hd, where the function needs 5 (S and dP are formed
+// in both kernels).  P = 2^(s * scale*log2(e) - lse*log2(e)), one FMA and
+// one `ex2.approx` a score, the float32 forward's own expression, from its
+// natural-log lse.  O is float32, so D = dO . O carries no rounding for dK
+// to sum over T rows (what made the bf16 dkdv read dq's rowsum(dP o P)).
+//
+// Bound on an H100 at the training shapes (B=8, H=12, hd=64): operations,
+// 10*B*H*T^2*hd at 67 TF/s, 0.0916 ms at T=316 and 0.6257 ms at T=826
+// (q, k, v, dO in and dQ, dK, dV out move 7*B*T*H*hd floats, 16 us at
+// T=316).  The CUDA cores do one FMA per operand pair, so the design
+// counts instruction slots and shared-memory loads.
+//
+// The design:
+// - D from O: S and dP once in each kernel, 7 products (D from rowsum(dP
+//   o P) would need a pass over the keys before dQ, and a third S and dP).
+// - Register micro-tiles: a step of 4 dims of a score product costs 4 + 8
+//   float4 loads for 128 FMAs (the A loads are broadcast to a row group's
+//   eight lanes); a row of a product by a streamed tile 1 + HD/32 float4
+//   loads for HD/2 FMAs.
+// - The streamed 64-row tiles (K/V; Q, dO, lse, D) sit in two stages
+//   filled by `cp.async` with zero-fill past T or the keys: tile t + 1 is
+//   in flight while tile t is multiplied.  Views whose rows are not
+//   16-byte vectors stage synchronously into the same layout (template
+//   flag VEC).
+// - No padding: each tile's 16-byte chunks are XOR-swizzled by row
+//   (`swz_key`), so the eight lanes that read one chunk of eight
+//   consecutive rows hit eight bank groups.  That keeps dkdv at 113 KB of
+//   dynamic shared memory at hd 64 (dq 112 KB), two blocks per SM in its
+//   228 KB, opted in before each launch.
+// - dkdv holds dK and dV (64 floats a thread at hd 64): S^T becomes P^T in
+//   shared memory before dP^T is formed, so one score tile is live in
+//   registers at a time; each thread reads its own P back for dS.
+// - A head-major 1-D grid, row tile fastest, so the blocks of one (b, h)
+//   run together and share its K/V (dq) or Q/dO (dkdv) through L2.
+// Registers and spills (`ptxas -v`, printed by `chip_smoke.py` phase 2) at
+// hd 64 with 16-byte rows: dq 230, dkdv 230, no spills; so two resident
+// blocks per SM for both (`__launch_bounds__(kF32Threads, 2)`: 2 x 128 x
+// 230 registers of 65536, and 2 x 113 KB of 228 KB).  Each
+// kernel runs at about half of the 67 TF/s for its own products
+// (`scripts/attention_f32_ab.py --profile`, B=8, T=826, NVIDIA H100 80GB
+// HBM3 at 700 W): 16-byte shared loads cap a 4 x 8 micro-tile near two
+// thirds of the FMA rate (PERF.md section 6).
+
+// The XOR key of row r's 16-byte chunks in a tile of rows of W floats
+// (chunk c lies at c ^ key).  Rows of 32 or 64 floats span one or two
+// 128-byte lines, so the row's low three bits; rows of 16 floats (two a
+// line) take bits 1-2.  Either way rows r and r + 8 share a key, and so do
+// rows r and r + 16.
+template <int W>
+__device__ __forceinline__ int swz_key(int r) {
+  return W >= 32 ? (r & 7) : ((r >> 1) & 3);
+}
+
+// chunk c of row r of a swizzled tile of rows of W floats
+template <int W, typename T>
+__device__ __forceinline__ T* swz_at(T* tile, int r, int c) {
+  return tile + r * W + 4 * (c ^ swz_key<W>(r));
+}
+
+// 64 rows from r0 of one (b, h) slice into a swizzled tile of rows of HD
+// floats (zero at and past `limit`), by the whole block: `cp.async` when
+// VEC, else synchronous strided loads
+template <int HD, bool VEC>
+__device__ __forceinline__ void stage_swz(float* dst, const float* base,
+                                          Strides s, int r0, int limit) {
+  for (int idx = threadIdx.x; idx < kF32Rows * HD / 4; idx += kF32Threads) {
+    const int j = idx / (HD / 4);
+    const int c = idx % (HD / 4);
+    const int r = r0 + j;
+    const bool valid = r < limit;
+    float* d = swz_at<HD>(dst, j, c);
+    if (VEC) {
+      cp_async16(d, valid ? base + r * s.t + 4 * c : base, valid);
+    } else {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (valid) {
+        const float* p = base + r * s.t + 4 * c * s.d;
+        x = make_float4(p[0], p[s.d], p[2 * s.d], p[3 * s.d]);
+      }
+      *reinterpret_cast<float4*>(d) = x;
+    }
+  }
+}
+
+// 64 floats from r0 of one (b, h) row of a (B*H, T) array into shared
+// memory (zero at and past `limit`)
+__device__ __forceinline__ void stage_row_f32(float* dst, const float* base,
+                                              int r0, int limit) {
+  if (threadIdx.x < kBlockK) {
+    const int r = r0 + threadIdx.x;
+    cp_async4(dst + threadIdx.x, r < limit ? base + r : base, r < limit);
+  }
+}
+
+// c[a][i] = A[rg + 16a] . B[cg + 8i]: this thread's 4 x 8 part of the
+// 64 x 64 product A B^T of two swizzled 64-row tiles of HD floats
+template <int HD>
+__device__ __forceinline__ void f32_abt(float (&c)[4][8], const float* A,
+                                        const float* B, int rg, int cg) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) c[a][i] = 0.f;
+  }
+  const float* arow = A + rg * HD;
+  const float* brow = B + cg * HD;
+  const int ka = swz_key<HD>(rg);  // the key of rows rg + 16a
+  const int kb = swz_key<HD>(cg);  // and of rows cg + 8i
+#pragma unroll 4
+  for (int ch = 0; ch < HD / 4; ++ch) {
+    float4 av[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      av[a] = *reinterpret_cast<const float4*>(arow + 16 * a * HD +
+                                               4 * (ch ^ ka));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(brow + 8 * i * HD + 4 * (ch ^ kb));
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        c[a][i] = fmaf(av[a].x, bv.x, c[a][i]);
+        c[a][i] = fmaf(av[a].y, bv.y, c[a][i]);
+        c[a][i] = fmaf(av[a].z, bv.z, c[a][i]);
+        c[a][i] = fmaf(av[a].w, bv.w, c[a][i]);
+      }
+    }
+  }
+}
+
+// x[a] (rows rg + 16a) into column j of the score tile, kept transposed:
+// row j, chunk rg, one float4
+__device__ __forceinline__ void put_scores(float* xs, int j, int rg,
+                                           const float (&x)[4]) {
+  *reinterpret_cast<float4*>(swz_at<kF32Rows>(xs, j, rg)) =
+      make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ float4 get_scores(const float* xs, int j, int rg) {
+  return *reinterpret_cast<const float4*>(swz_at<kF32Rows>(xs, j, rg));
+}
+
+// acc[a][e] += X[j][rg + 16a] * T[j][f32_dim(cg, e)] for rows j < `rows`
+// of a streamed tile T, X the transposed score tile
+template <int HD>
+__device__ __forceinline__ void f32_xt_row(const float* xs, const float* tt,
+                                           float (&acc)[4][HD / 8], int j,
+                                           int rg, int cg) {
+  const float4 x4 = get_scores(xs, j, rg);
+  const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+  if (HD >= 32) {
+#pragma unroll
+    for (int c = 0; c < HD / 32; ++c) {
+      const float4 tv =
+          *reinterpret_cast<const float4*>(swz_at<HD>(tt, j, 8 * c + cg));
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        acc[a][4 * c + 0] = fmaf(x[a], tv.x, acc[a][4 * c + 0]);
+        acc[a][4 * c + 1] = fmaf(x[a], tv.y, acc[a][4 * c + 1]);
+        acc[a][4 * c + 2] = fmaf(x[a], tv.z, acc[a][4 * c + 2]);
+        acc[a][4 * c + 3] = fmaf(x[a], tv.w, acc[a][4 * c + 3]);
+      }
+    }
+  } else {
+    const float2 tv = *reinterpret_cast<const float2*>(
+        swz_at<HD>(tt, j, cg >> 1) + 2 * (cg & 1));
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      acc[a][0] = fmaf(x[a], tv.x, acc[a][0]);
+      acc[a][1] = fmaf(x[a], tv.y, acc[a][1]);
+    }
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void f32_xt(const float* xs, const float* tt,
+                                       float (&acc)[4][HD / 8], int rows,
+                                       int rg, int cg) {
+  if (rows == kBlockK) {
+    // a full tile: a fixed trip count, 16 rows deep (4 and 8 ran 1.5-5%
+    // slower at B=8, T=826; 32 and 64 slower at T=316)
+#pragma unroll 16
+    for (int j = 0; j < kBlockK; ++j) f32_xt_row<HD>(xs, tt, acc, j, rg, cg);
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < rows; ++j) f32_xt_row<HD>(xs, tt, acc, j, rg, cg);
+  }
+}
+
+// this thread's HD/8 dims (f32_dim) of one (b, t, h) row: float4 chunks
+// when VEC
+template <int HD, bool VEC>
+__device__ __forceinline__ void load_dims(float (&x)[HD / 8], const float* p,
+                                          long long sd, int cg) {
+  if (VEC && HD >= 32) {
+#pragma unroll
+    for (int c = 0; c < HD / 32; ++c) {
+      const float4 t = *reinterpret_cast<const float4*>(p + 32 * c + 4 * cg);
+      x[4 * c] = t.x;
+      x[4 * c + 1] = t.y;
+      x[4 * c + 2] = t.z;
+      x[4 * c + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < HD / 8; ++e) x[e] = p[f32_dim<HD>(cg, e) * sd];
+  }
+}
+
+template <int HD, bool VEC>
+__device__ __forceinline__ void store_dims(float* p, long long sd,
+                                           const float (&x)[HD / 8],
+                                           float mul, int cg) {
+  if (VEC && HD >= 32) {
+#pragma unroll
+    for (int c = 0; c < HD / 32; ++c) {
+      *reinterpret_cast<float4*>(p + 32 * c + 4 * cg) =
+          make_float4(x[4 * c] * mul, x[4 * c + 1] * mul,
+                      x[4 * c + 2] * mul, x[4 * c + 3] * mul);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < HD / 8; ++e) p[f32_dim<HD>(cg, e) * sd] = x[e] * mul;
+  }
+}
+
+// Shared memory of a float32 backward kernel: two resident 64-row tiles,
+// two stages of two streamed ones (rows of HD floats, swizzled), the
+// 64 x 64 score tile, and (dkdv) two stages of 64 lse and 64 D values
+template <int HD>
+constexpr int bwd_f32_smem_bytes(bool dkdv) {
+  return (6 * kF32Rows * HD + kBlockK * kF32Rows + (dkdv ? 4 * kBlockK : 0)) *
+         static_cast<int>(sizeof(float));
+}
+
+// Grid: ceil(T/64) query tiles x B*H, query tile fastest; kF32Threads
+// threads, bwd_f32_smem_bytes<HD>(false) of dynamic shared memory.
+// Writes dQ, and D = dO . O (B*H, T) into delta.
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, 2)
+attention_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ out,
+                            const float* __restrict__ lse,
+                            const int* __restrict__ lengths,
+                            float* __restrict__ dq, float* __restrict__ delta,
+                            int n_heads, int seq, int n_tiles, Strides sq,
+                            Strides sk, Strides sv, Strides sdo, Strides so,
+                            Strides sdq, float scale_log2, float scale) {
+  constexpr int kTile = kF32Rows * HD;  // floats of one 64-row tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + kTile;
+  float* ks = dos + kTile;     // stage s: ks + s * kTile
+  float* vs = ks + 2 * kTile;  // stage s: vs + s * kTile
+  float* xs = vs + 2 * kTile;  // dS^T
+
+  const int lane = threadIdx.x % 32;
+  const int rg = threadIdx.x / 32 * 4 + lane / 8;  // query rows rg + 16a
+  const int cg = lane % 8;                         // keys cg + 8i
+  const int bh = blockIdx.x / n_tiles;
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const int r0 = blockIdx.x % n_tiles * kF32Rows;
+  const int len = lengths != nullptr ? lengths[b] : seq;
+  const int n_keys = min(len, seq);
+  // length 0: the scores are the constant -1e30, so dQ = 0 (no key tiles)
+  const int n_tiles_k = n_keys > 0 ? (n_keys + kBlockK - 1) / kBlockK : 0;
+
+  const float* kbase = k + b * sk.b + h * sk.h;
+  const float* vbase = v + b * sv.b + h * sv.h;
+  if (n_tiles_k > 0) {  // q, dO and K/V tile 0: group 0
+    stage_swz<HD, VEC>(qs, q + b * sq.b + h * sq.h, sq, r0, seq);
+    stage_swz<HD, VEC>(dos, dout + b * sdo.b + h * sdo.h, sdo, r0, seq);
+    stage_swz<HD, VEC>(ks, kbase, sk, 0, n_keys);
+    stage_swz<HD, VEC>(vs, vbase, sv, 0, n_keys);
+  }
+  cp_async_commit();
+
+  // while group 0 flies: D = dO . O and lse*log2(e) of rows rg + 16a, from
+  // device memory; each of a row's eight lanes sums its HD/8 dims, then a
+  // butterfly adds the eight (the same bits in each lane)
+  float dd[4], lse2[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = r0 + rg + 16 * a;
+    float sum = 0.f;
+    if (row < seq) {
+      float x[HD / 8], y[HD / 8];
+      load_dims<HD, VEC>(x, dout + b * sdo.b + row * sdo.t + h * sdo.h,
+                         sdo.d, cg);
+      load_dims<HD, VEC>(y, out + b * so.b + row * so.t + h * so.h, so.d,
+                         cg);
+#pragma unroll
+      for (int e = 0; e < HD / 8; ++e) sum = fmaf(x[e], y[e], sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    dd[a] = sum;
+    lse2[a] = row < seq ? lse[bh * seq + row] * kLog2e : 0.f;
+    if (cg == 0 && row < seq) delta[bh * seq + row] = sum;
+  }
+
+  float acc[4][HD / 8];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int e = 0; e < HD / 8; ++e) acc[a][e] = 0.f;
+  }
+  for (int t = 0; t < n_tiles_k; ++t) {
+    const int stage = t & 1;
+    // tile t has landed, and every thread is done with tile t - 1 (its
+    // stage and dS^T): tile t + 1 goes into that stage while t runs
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_tiles_k) {
+      const int k1 = (t + 1) * kBlockK;
+      stage_swz<HD, VEC>(ks + (stage ^ 1) * kTile, kbase, sk, k1, n_keys);
+      stage_swz<HD, VEC>(vs + (stage ^ 1) * kTile, vbase, sv, k1, n_keys);
+    }
+    cp_async_commit();
+    const float* kt = ks + stage * kTile;
+    const int tile_keys = min(kBlockK, n_keys - t * kBlockK);
+    float s[4][8], dp[4][8];
+    f32_abt<HD>(s, qs, kt, rg, cg);
+    f32_abt<HD>(dp, dos, vs + stage * kTile, rg, cg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // keys at and past n_keys (zero-filled) weigh 0
+      const bool gone = tile_keys < kBlockK && cg + 8 * i >= tile_keys;
+      float x[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float p =
+            gone ? 0.f : exp2_ftz(fmaf(s[a][i], scale_log2, -lse2[a]));
+        x[a] = p * (dp[a][i] - dd[a]);  // dS
+      }
+      put_scores(xs, cg + 8 * i, rg, x);
+    }
+    __syncthreads();  // dS^T complete
+    f32_xt<HD>(xs, kt, acc, tile_keys, rg, cg);
+  }
+  float* dqbase = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = r0 + rg + 16 * a;
+    if (row < seq) {
+      store_dims<HD, VEC>(dqbase + row * sdq.t, sdq.d, acc[a], scale, cg);
+    }
+  }
+}
+
+// Grid: ceil(T/64) key tiles x B*H, key tile fastest; kF32Threads
+// threads, bwd_f32_smem_bytes<HD>(true) of dynamic shared memory.  Reads
+// the dq kernel's D.
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, 2)
+attention_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              const int* __restrict__ lengths,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int n_heads, int seq, int n_tiles, Strides sq,
+                              Strides sk, Strides sv, Strides sdo,
+                              Strides sdk, Strides sdv, float scale_log2,
+                              float scale) {
+  constexpr int kTile = kF32Rows * HD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kTile;
+  float* qs = vs + kTile;               // stage s: qs + s * kTile
+  float* dos = qs + 2 * kTile;          // stage s: dos + s * kTile
+  float* xs = dos + 2 * kTile;          // P^T, then dS^T
+  float* ls = xs + kBlockK * kF32Rows;  // stage s: ls + s * kBlockK
+  float* ds = ls + 2 * kBlockK;         // stage s: ds + s * kBlockK
+
+  const int lane = threadIdx.x % 32;
+  const int rg = threadIdx.x / 32 * 4 + lane / 8;  // keys rg + 16a
+  const int cg = lane % 8;                         // query rows cg + 8i
+  const int bh = blockIdx.x / n_tiles;
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const int k0 = blockIdx.x % n_tiles * kF32Rows;
+  const int len = lengths != nullptr ? lengths[b] : seq;
+  const bool all_masked = len < 1;
+  // keys the rows attend to: the valid ones, or all T when none is valid;
+  // a block past them has dK = dV = 0 exactly (no row attends to its keys)
+  const int n_keys = all_masked ? seq : min(len, seq);
+  const int n_tiles_q = k0 < n_keys ? (seq + kBlockK - 1) / kBlockK : 0;
+  const float uniform = 1.f / seq;  // P of a length-0 row
+  bool live[4];  // key rg + 16a is valid
+#pragma unroll
+  for (int a = 0; a < 4; ++a) live[a] = k0 + rg + 16 * a < n_keys;
+
+  const float* qbase = q + b * sq.b + h * sq.h;
+  const float* dobase = dout + b * sdo.b + h * sdo.h;
+  const float* lbase = lse + bh * seq;
+  const float* dbase = delta + bh * seq;
+  if (n_tiles_q > 0) {  // K, V and Q/dO/lse/D tile 0: group 0
+    stage_swz<HD, VEC>(ks, k + b * sk.b + h * sk.h, sk, k0, n_keys);
+    stage_swz<HD, VEC>(vs, v + b * sv.b + h * sv.h, sv, k0, n_keys);
+    stage_swz<HD, VEC>(qs, qbase, sq, 0, seq);
+    stage_swz<HD, VEC>(dos, dobase, sdo, 0, seq);
+    stage_row_f32(ls, lbase, 0, seq);
+    stage_row_f32(ds, dbase, 0, seq);
+  }
+  cp_async_commit();
+
+  float acc_k[4][HD / 8], acc_v[4][HD / 8];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int e = 0; e < HD / 8; ++e) acc_k[a][e] = acc_v[a][e] = 0.f;
+  }
+  for (int t = 0; t < n_tiles_q; ++t) {
+    const int stage = t & 1;
+    // tile t has landed, and every thread is done with tile t - 1 (its
+    // stage and dS^T)
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_tiles_q) {
+      const int q1 = (t + 1) * kBlockK;
+      const int o = stage ^ 1;
+      stage_swz<HD, VEC>(qs + o * kTile, qbase, sq, q1, seq);
+      stage_swz<HD, VEC>(dos + o * kTile, dobase, sdo, q1, seq);
+      stage_row_f32(ls + o * kBlockK, lbase, q1, seq);
+      stage_row_f32(ds + o * kBlockK, dbase, q1, seq);
+    }
+    cp_async_commit();
+    const float* qt = qs + stage * kTile;
+    const float* dot = dos + stage * kTile;
+    const float* lt = ls + stage * kBlockK;
+    const float* dt = ds + stage * kBlockK;
+    const int rows = min(kBlockK, seq - t * kBlockK);
+    float s[4][8];  // S^T, then dP^T, then dS^T
+    f32_abt<HD>(s, ks, qt, rg, cg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float l2 = lt[cg + 8 * i] * kLog2e;
+      float p[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        // length 0: P uniform over the T keys
+        p[a] = !live[a]    ? 0.f
+               : all_masked ? uniform
+                            : exp2_ftz(fmaf(s[a][i], scale_log2, -l2));
+      }
+      put_scores(xs, cg + 8 * i, rg, p);
+    }
+    f32_abt<HD>(s, vs, dot, rg, cg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float d = dt[cg + 8 * i];
+      const float4 p = get_scores(xs, cg + 8 * i, rg);  // this thread's own
+      // length 0: the scores do not depend on q or k, so dS = 0
+      s[0][i] = all_masked ? 0.f : p.x * (s[0][i] - d);
+      s[1][i] = all_masked ? 0.f : p.y * (s[1][i] - d);
+      s[2][i] = all_masked ? 0.f : p.z * (s[2][i] - d);
+      s[3][i] = all_masked ? 0.f : p.w * (s[3][i] - d);
+    }
+    __syncthreads();  // P^T complete
+    f32_xt<HD>(xs, dot, acc_v, rows, rg, cg);
+    __syncthreads();  // every thread is done with P^T
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float x[4] = {s[0][i], s[1][i], s[2][i], s[3][i]};
+      put_scores(xs, cg + 8 * i, rg, x);
+    }
+    __syncthreads();  // dS^T complete
+    f32_xt<HD>(xs, qt, acc_k, rows, rg, cg);
+  }
+  float* dkbase = dk + b * sdk.b + h * sdk.h;
+  float* dvbase = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int key = k0 + rg + 16 * a;
+    if (key >= seq) continue;
+    if (!live[a]) {  // masked keys: exactly zero
+#pragma unroll
+      for (int e = 0; e < HD / 8; ++e) acc_k[a][e] = acc_v[a][e] = 0.f;
+    }
+    store_dims<HD, VEC>(dkbase + key * sdk.t, sdk.d, acc_k[a], scale, cg);
+    store_dims<HD, VEC>(dvbase + key * sdv.t, sdv.d, acc_v[a], 1.f, cg);
+  }
+}
+
 // ------------------------------------------------------------- launch
 
 bool aligned16(const void* p) {
@@ -1770,6 +2024,46 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// s: strides of q, k, v, dout, dq, dk, dv, out
+template <int HD, bool VEC>
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* out,
+                           const float* lse, const int* lengths, void* dq,
+                           void* dk, void* dv, float* delta, int batch,
+                           int seq, int n_heads, const Strides* s,
+                           float scale, cudaStream_t stream) {
+  auto dq_kernel = attention_bwd_dq_f32_kernel<HD, VEC>;
+  auto dkdv_kernel = attention_bwd_dkdv_f32_kernel<HD, VEC>;
+  constexpr int dq_smem = bwd_f32_smem_bytes<HD>(false);
+  constexpr int dkdv_smem = bwd_f32_smem_bytes<HD>(true);
+  // above 48 KB (hd 32 and 64) only after this opt-in
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+  if (err != cudaSuccess) return err;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  const int n_tiles = (seq + kF32Rows - 1) / kF32Rows;
+  const int grid = n_tiles * batch * n_heads;
+  // the forward's scale*log2(e), rounded alike
+  const float scale_log2 = scale * kLog2e;
+  dq_kernel<<<grid, kF32Threads, dq_smem, stream>>>(
+      qf, kf, vf, df, static_cast<const float*>(out), lse, lengths,
+      static_cast<float*>(dq), delta, n_heads, seq, n_tiles, s[0], s[1],
+      s[2], s[3], s[7], s[4], scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<<<grid, kF32Threads, dkdv_smem, stream>>>(
+      qf, kf, vf, df, lse, delta, lengths, static_cast<float*>(dk),
+      static_cast<float*>(dv), n_heads, seq, n_tiles, s[0], s[1], s[2], s[3],
+      s[5], s[6], scale_log2, scale);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_bwd(int dtype, const void* q, const void* k,
                        const void* v, const void* dout, const void* out,
@@ -1778,21 +2072,18 @@ cudaError_t launch_bwd(int dtype, const void* q, const void* k,
                        int n_heads, const Strides* s, float scale,
                        cudaStream_t stream) {
   if (dtype == 0) {
-    const dim3 grid(batch * n_heads, (seq + kBwdRows - 1) / kBwdRows);
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    const float* df = static_cast<const float*>(dout);
-    attention_bwd_dq_f32_kernel<HD><<<grid, kBwdThreads, 0, stream>>>(
-        qf, kf, vf, df, lse, lengths, static_cast<float*>(dq), delta,
-        n_heads, seq, s[0], s[1], s[2], s[3], s[4], scale);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    attention_bwd_dkdv_f32_kernel<HD><<<grid, kBwdThreads, 0, stream>>>(
-        qf, kf, vf, df, lse, delta, lengths, static_cast<float*>(dk),
-        static_cast<float*>(dv), n_heads, seq, s[0], s[1], s[2], s[3], s[5],
-        s[6], scale);
-    return cudaGetLastError();
+    // staged, read (out) and written rows as 16-byte vectors
+    bool vec = true;
+    const void* ptrs[8] = {q, k, v, dout, dq, dk, dv, out};
+    for (int i = 0; i < 8; ++i) vec = vec && vec_rows_f32(ptrs[i], s[i]);
+    if (vec) {
+      return launch_bwd_f32<HD, true>(q, k, v, dout, out, lse, lengths, dq,
+                                      dk, dv, delta, batch, seq, n_heads, s,
+                                      scale, stream);
+    }
+    return launch_bwd_f32<HD, false>(q, k, v, dout, out, lse, lengths, dq,
+                                     dk, dv, delta, batch, seq, n_heads, s,
+                                     scale, stream);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
   // staged and written rows as 16-byte vectors (out is read element-wise)
@@ -1853,9 +2144,9 @@ extern "C" int peppa_attention_fwd(const void* q, const void* k,
 // The backward: dq, dk, dv (q's dtype) from q, k, v, dout, the forward's
 // output and its lse (natural-log units in float32, log2 units in
 // bfloat16).  strides: 32 int64 values, (b, t, h, d) for q, k, v, dout, dq,
-// dk, dv, out.  out: read in bfloat16 only (D = rowsum(dout o out)).
-// delta: float32 (B*H, T) scratch.  Returns the first failed launch's
-// cudaError_t, else 0.
+// dk, dv, out.  out: read by the dq kernel for D = rowsum(dout o out)
+// (float32: the D of both kernels; bfloat16: the D of dQ alone).  delta: float32 (B*H, T)
+// scratch.  Returns the first failed launch's cudaError_t, else 0.
 extern "C" int peppa_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* out, const void* lse,

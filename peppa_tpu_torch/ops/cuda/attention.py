@@ -18,15 +18,23 @@ forward's log-sum-exp and takes D = rowsum(dO o O) from the forward's
 output.
 
 float32 runs on the CUDA cores in full float32 FMAs (the port's precision
-reference: the aligner's CTC log-probs, the float32 Embedder, the
-card-vs-CPU checks).  The forward's bound is operations at 67 TF/s: 0.1465
-ms at B=32, T=316 and 0.0292 ms at B=1, T=799.  It is register-tiled like a
-SIMT SGEMM (4 rows x 8 keys of S and 4 rows x HD/8 dims of O a thread, so
-one 16-byte shared-memory load feeds about 11 FMAs), streams K/V through
-two `cp.async` stages, and where the grid of 64-row tiles is too small
-for the card (the aligner's B=1) cuts each row's keys into splits that a
-second kernel combines by their log-sum-exps in a fixed order
+reference: the aligner's CTC log-probs, the float32 Embedder, float32
+training with `audio.dropout: 0.0`, the card-vs-CPU checks).  Both
+directions are bound by operations at 67 TF/s: the forward 0.1465 ms at
+B=32, T=316 and 0.0292 ms at B=1, T=799; the backward 0.0916 ms at B=8,
+T=316 and 0.6257 ms at T=826.  Both are register-tiled like a SIMT SGEMM
+(64-row tiles of 128 threads, a 4 x 8 part of each 64 x 64 score tile and
+4 rows x HD/8 dims of each output a thread, so one 16-byte shared-memory
+load feeds about 11 FMAs) and stream their 64-row tiles through two
+`cp.async` stages.  Where the forward's grid of 64-row tiles is too small
+for the card (the aligner's B=1) it cuts each row's keys into splits that
+a second kernel combines by their log-sum-exps in a fixed order
 (`_f32_plan`, from the shapes alone; scratch from `torch.empty` per call).
+The float32 backward, like the bf16 one, runs a query-tile grid (dQ, and D
+= rowsum(dO o O) from the forward's float32 output) and a key-tile grid
+(dK, dV), recomputing P from the forward's natural-log lse in its log2
+units; its tiles are XOR-swizzled in shared memory instead of padded, so
+two blocks fit on an SM.
 
 `mha_attention` takes (B, T, H, hd) q/k/v in float32 or bfloat16 and returns
 the same layout in q's dtype.  When autograd needs its gradient it runs as a

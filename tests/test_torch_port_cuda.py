@@ -785,3 +785,109 @@ def test_attention_f32_bit_identical(cuda, b, t):
     with ThreadPoolExecutor(max_workers=8) as pool:
         results = list(pool.map(run, range(8)))
     assert all(torch.equal(first, o) for outs in results for o in outs)
+
+
+# Kernel 2's float32 route: 64-row tiles of 128 threads in two grids (query
+# tiles for dQ and D = dO . O, key tiles for dK and dV), swizzled
+# `cp.async` stages, and a synchronous staging path for views whose rows
+# are not 16-byte vectors.
+
+
+def _bwd_f32_inputs(cuda, b, t, seed, hd=64):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(b, t, 12, hd, generator=gen, device=cuda)
+            for _ in range(4)]
+
+
+def _bwd_held(q, k, v, do, lengths):
+    """One launch of the float32 backward, within 1e-4 + 1e-4|plain| of
+    the plain version; masked keys get exactly zero dK and dV."""
+    before = mha_attention_bwd.launches
+    got = _bwd(q, k, v, do, lengths)
+    assert mha_attention_bwd.launches == before + 1
+    want = mha_attention_bwd_plain(q, k, v, do, lengths)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    if lengths is not None:
+        for i, n in enumerate(lengths.tolist()):
+            if n > 0:
+                assert not got[1][i, n:].any() and not got[2][i, n:].any()
+    return got
+
+
+@pytest.mark.parametrize("t", [2049, 3001])
+def test_attention_bwd_f32_past_the_tpu_bound(cuda, t):
+    """Past T = 2048 the float32 backward runs with no switch on T (ROADMAP
+    C), full and ragged."""
+    q, k, v, do = _bwd_f32_inputs(cuda, 2, t, t)
+    for lengths in (None, torch.tensor([t, t // 3], device=cuda)):
+        _bwd_held(q, k, v, do, lengths)
+
+
+@pytest.mark.parametrize("b,t", [(1, 99), (1, 316), (1, 799), (2, 316),
+                                 (2, 826)])
+def test_attention_bwd_f32_small_grids(cuda, b, t):
+    """B=1 and B=2 grids (phase 5's micro-step is B=2, T=316: 120 blocks
+    a kernel), full, one key short of T, length 1 and 0."""
+    q, k, v, do = _bwd_f32_inputs(cuda, b, t, 31 * t + b)
+    _bwd_held(q, k, v, do, None)
+    for n in (t - 1, 1, 0):
+        lengths = torch.full((b,), n, device=cuda)
+        lengths[0] = t - 1 if b > 1 else n
+        _bwd_held(q, k, v, do, lengths)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_attention_bwd_f32_unaligned_rows_stage_synchronously(cuda, hd):
+    """Views whose rows are not 16-byte vectors (one float off) take the
+    synchronous staging and element-wise writes: within 1e-4 of the plain
+    version and bit-identical to the `cp.async` path on contiguous copies
+    (the same layout and the same order of every sum)."""
+    t = 201
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    n = 2 * t * 12 * hd
+    flat = torch.randn(4 * n + 1, generator=gen, device=cuda)
+    unaligned = [flat[1 + i * n:1 + (i + 1) * n].view(2, t, 12, hd)
+                 for i in range(4)]
+    contiguous = [x.clone() for x in unaligned]
+    scale = hd ** -0.5
+    for lengths in (None, torch.tensor([t, 70], device=cuda)):
+        _bwd_held(*unaligned, lengths)
+        out, lse = _launch(*contiguous[:3], lengths, scale, with_lse=True)
+        want = mha_attention_bwd(*contiguous, lengths, scale, lse, out)
+        for args in (unaligned, [unaligned[0], *contiguous[1:]]):
+            got = mha_attention_bwd(*args, lengths, scale, lse, out)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("b,t", [(8, 316), (2, 826)])
+def test_attention_bwd_f32_bit_identical_threads(cuda, b, t):
+    """No atomics: repeats give the same bits, and 8 threads launching the
+    same inputs each on its own stream write the bytes of one serial
+    launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    q, k, v, do = _bwd_f32_inputs(cuda, b, t, 7)
+    lens = torch.full((b,), t - 1, device=cuda)
+    scale = 64 ** -0.5
+    out, lse = _launch(q, k, v, lens, scale, with_lse=True)
+    first = mha_attention_bwd(q, k, v, do, lens, scale, lse, out)
+    for _ in range(2):
+        again = mha_attention_bwd(q, k, v, do, lens, scale, lse, out)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+    torch.cuda.synchronize()
+
+    def run(_):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs = [mha_attention_bwd(q, k, v, do, lens, scale, lse, out)
+                    for _ in range(3)]
+        stream.synchronize()
+        return outs
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        results = list(pool.map(run, range(8)))
+    assert all(torch.equal(x, y) for outs in results for got in outs
+               for x, y in zip(first, got))
