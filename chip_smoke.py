@@ -29,6 +29,23 @@ Phases:
      bucket, then `eval_step` on a B=32 2.3 s batch; then the encode time
      of both towers at B=32 on the 2.3 s bucket and of the audio tower
      alone on the 6.0 s bucket (T=826);
+ 3q. W8A8 int8 serving of the same configuration and weights: the run
+     directory written as the JAX package's msgpack and served by
+     `EncoderService.from_checkpoint(..., quantize_int8=True)` (warm-up
+     over every bucket, the mixed-length requests, `eval_step` at B=32,
+     2.3 s): kernel 1 12 times and 79 int8 products (`ops/quant.py`'s
+     counters) per audio forward, 37 per video forward, kernel 3 once;
+     each int8 product (a library call: im2col + `torch._int_mm`, no TPU
+     kernel) on the path's first input of each weight shape, row 0, equal
+     bit for bit to its plain version on the CPU (the int32 accumulator and
+     the dequantised output); the cosine of the int8 embeddings to the
+     bf16 float path's (above 0.99); encode pairs/s at B=32, 2.3 s, and the
+     audio tower at B=32, 6.0 s, int8 and bf16 in turns, with the peak
+     memory; a `torch.profiler` split of one int8 encode (quantize passes,
+     im2col copies, int8 GEMMs, dequantize, the rest); one float32 int8
+     2.3 s pair on the card and the CPU, each product on the card fed the
+     CPU's input (as tests/test_torch_port_quant.py holds the port to the
+     JAX package);
   4. the training step of the same configuration at full width and depth,
      bf16, micro-batch 8 of 2.3 s clips, `accumulate_grad_batches` 8, for 2
      optimizer steps (16 micro-steps), twice: (a) `audio.dropout: 0.0`,
@@ -139,7 +156,7 @@ last line `{"ok": true, "device": {...}}`.  With `--phases`, only those
 phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 7 brings phase 6), and the summary is their records.
 
-Launch counts are set to 0 just before each main path (3, 4a, 4b, 4e, the
+Launch counts are set to 0 just before each main path (3, 3q, 4a, 4b, 4e, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
 the battery, the targeted path and the towers of 6, each model step of
 7, the realign and the targeted path of 8) and read just after it.
@@ -184,6 +201,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def tf32_line() -> str:
+    """The TF32 settings in force in this process."""
+    import torch
+
+    return (f"TF32 in force: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+            f"cudnn {torch.backends.cudnn.allow_tf32}")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -824,6 +849,370 @@ def run_slice(report: dict, card: str) -> None:
           f"(T={int(conv_output_length(samples))} in the transformer) "
           f"({card})")
     del svc, model
+
+
+# ----------------------------------------------------------------- phase 3q
+INT8_COS = 0.99  # int8 against float embeddings, tests/test_quant.py's bound
+# int8 products per forward of the base towers: wav2vec2-base conv1-6, proj
+# and 6 in each of its 12 layers; R(2+1)D-18's 37 trunk convs
+INT8_PER_AUDIO = {"int8_conv": 6, "int8_matmul": 1 + 6 * 12}
+INT8_PER_VIDEO = {"int8_conv": 37, "int8_matmul": 0}
+# tests/test_torch_port_quant.py: each product fed the other side's input,
+# the own input within INT8_GLUE_TOL of it (share of its largest |value|),
+# the embeddings within INT8_TOL
+INT8_GLUE_TOL, INT8_TOL = 1e-5, 1e-6
+# the quantization steps that phase 3q's profile splits out
+INT8_PARTS = {"quantize": ("absmax_weight_scale", "act_scale",
+                           "quantize_int8"),
+              "im2col": ("_im2col",), "int8 GEMM": ("_int_mm_padded",),
+              "dequantize": ("dequantize",)}
+
+
+def _int8_counts(reset: bool = False) -> dict:
+    from peppa_tpu_torch.ops import quant
+
+    out = {"int8_conv": quant.int8_conv.calls,
+           "int8_matmul": quant.int8_matmul.calls}
+    if reset:
+        quant.int8_conv.calls = quant.int8_matmul.calls = 0
+    return out
+
+
+def _wrap_int8(wrapper):
+    """Wrap the int8 entry points as `models/layers.py` calls them; returns
+    the undo."""
+    from peppa_tpu_torch.models import layers
+
+    undos = [_patch(layers, "int8_conv", lambda real: wrapper(real, "conv")),
+             _patch(layers, "int8_matmul",
+                    lambda real: wrapper(real, "matmul"))]
+    return lambda: [undo() for undo in undos]
+
+
+def _keep_int8(kept: dict):
+    """A wrapper that keeps the first input of each int8 product's weight
+    shape, stride and padding (on the host) and row 0 of its output."""
+    def wrapper(real, kind):
+        def run(x, w, *args):
+            y = real(x, w, *args)
+            key = (kind, tuple(w.shape), *[tuple(a) for a in args
+                                           if isinstance(a, tuple)])
+            if key not in kept:
+                kept[key] = (x.detach().cpu(), w.detach().cpu(), args,
+                             y[:1].cpu())
+            return y
+        return run
+    return wrapper
+
+
+def _equal(a, b) -> bool:
+    """Same shape, dtype and values (strides aside)."""
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _hold_int8(kept: dict) -> int:
+    """Each kept product on row 0 of its input, quantized with the whole
+    input's scale: the int32 accumulator of the card route (`_int_mm` on
+    the card) equal to the plain version's on the CPU, and the path's
+    dequantised output equal to the plain version's, bit for bit."""
+    from peppa_tpu_torch.ops import quant
+
+    for (kind, *shape), (x, w, args, y0) in kept.items():
+        w_scale = quant.absmax_weight_scale(w)
+        wq = quant.quantize_int8(w, w_scale)
+        s_x = quant.act_scale(x)  # the whole input's
+        xq = quant.quantize_int8(x[:1], s_x)
+        if kind == "conv":
+            stride, padding, out_dtype = args
+            acc = quant.conv_acc_plain(xq, wq, stride, padding)
+            card = quant.conv_acc_mm(xq.cuda(), wq.cuda(), stride, padding)
+            scale = (s_x * w_scale.reshape(-1)).view(
+                -1, *([1] * (w.ndim - 2)))
+        else:
+            (out_dtype,) = args
+            acc = quant.matmul_acc_plain(xq, wq)
+            card = quant.matmul_acc_mm(xq.cuda(), wq.cuda())
+            scale = s_x * w_scale.reshape(-1)
+        y = quant.dequantize(acc, scale, out_dtype)
+        if not (_equal(card.cpu(), acc) and _equal(y0, y)):
+            raise AssertionError(f"int8 {kind} {shape} x {tuple(x.shape)}: "
+                                 "card and plain versions differ")
+    return len(kept)
+
+
+def _int8_f32_card_vs_cpu() -> dict:
+    """One 2.3 s pair through the float32 int8 towers on the CPU (plain
+    versions) and on the card, as tests/test_torch_port_quant.py holds the
+    port to the JAX package: each product on the card fed the CPU's input,
+    its own input within INT8_GLUE_TOL of it, its output equal to the
+    CPU's; the embeddings within INT8_TOL.  Then the card on its own (the
+    int8 rounding ties make that difference larger; printed)."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.models.dual_encoder import init_model
+
+    cfg = default_config()
+    cfg.training.precision = "fp32"
+    cfg.tpu.quantize_int8 = True
+    batch = _clip_batch(np.random.default_rng(4), cfg, 1, 2.3)
+    calls, fed = [], {"n": 0, "glue": 0.0, "unequal": 0}
+
+    def record(real, kind):
+        def run(x, w, *args):
+            y = real(x, w, *args)
+            calls.append((x.clone(), y.clone()))
+            return y
+        return run
+
+    def feed(real, kind):
+        def run(x, w, *args):
+            x_cpu, y_cpu = calls[fed["n"]]
+            fed["n"] += 1
+            glue = float((x.cpu() - x_cpu).abs().max() / x_cpu.abs().max())
+            fed["glue"] = max(fed["glue"], glue)
+            y = real(x_cpu.cuda(), w, *args)
+            fed["unequal"] += not _equal(y.cpu(), y_cpu)
+            return y
+        return run
+
+    def encode(model, device):
+        with torch.inference_mode():
+            return (model.encode_audio(torch.from_numpy(batch.audio)
+                                       .to(device)).cpu(),
+                    model.encode_video(torch.from_numpy(batch.video)
+                                       .to(device)).cpu())
+
+    undo = _wrap_int8(record)
+    try:
+        want = encode(init_model(cfg, seed=0, device="cpu"), "cpu")
+    finally:
+        undo()
+    card = init_model(cfg, seed=0)
+    undo = _wrap_int8(feed)
+    try:
+        got = encode(card, "cuda")
+    finally:
+        undo()
+    free = encode(card, "cuda")
+    out = {"products": fed["n"], "glue": fed["glue"],
+           "unequal_products": fed["unequal"],
+           "max_abs": max(float((g - w).abs().max())
+                          for g, w in zip(got, want)),
+           "free_running_max_abs": max(float((g - w).abs().max())
+                                       for g, w in zip(free, want))}
+    print(f"int8 serving, float32 2.3 s pair card vs CPU: {out['products']} "
+          f"products fed the CPU's inputs, own inputs within "
+          f"{out['glue']:.3g} (tol {INT8_GLUE_TOL}), {out['unequal_products']} "
+          f"unequal; embeddings max|d|={out['max_abs']:.3g} (tol {INT8_TOL});"
+          f" left on its own {out['free_running_max_abs']:.3g} (not held: "
+          f"rounding ties); {tf32_line()}")
+    if (fed["n"] != len(calls) or fed["unequal"]
+            or not out["glue"] <= INT8_GLUE_TOL
+            or not out["max_abs"] <= INT8_TOL):
+        raise AssertionError(f"int8 float32 card vs CPU: {out}")
+    return out
+
+
+def _int8_profile(model, audio, video) -> dict:
+    """Device time of one int8 encode (B=32, 2.3 s) under `torch.profiler`,
+    split by the quantization steps (`INT8_PARTS`, each wrapped in a
+    `record_function` range here) and the rest (the float work)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from peppa_tpu_torch.ops import quant
+
+    def ranged(name):
+        def wrap(real):
+            def run(*args, **kw):
+                with record_function(f"int8.{name}"):
+                    return real(*args, **kw)
+            return run
+        return wrap
+
+    names = [n for part in INT8_PARTS.values() for n in part]
+    undos = [_patch(quant, name, ranged(name)) for name in names]
+    try:
+        torch.cuda.synchronize()
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                as prof:
+            model.encode_audio(audio)
+            model.encode_video(video)
+            torch.cuda.synchronize()
+    finally:
+        for undo in undos:
+            undo()
+    by_range = {}
+    for e in prof.events():
+        if e.name.startswith("int8.") and e.device_type == DeviceType.CPU:
+            by_range[e.name[5:]] = (by_range.get(e.name[5:], 0.0)
+                                    + e.device_time_total / 1e3)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.device_time_total for e in kernels) / 1e3
+    split = {part: sum(by_range.get(n, 0.0) for n in members)
+             for part, members in INT8_PARTS.items()}
+    split["the rest (float work)"] = total - sum(split.values())
+    print(f"int8 encode profile (B=32, 2.3 s): device kernel time "
+          f"{total:.2f} ms; " + ", ".join(f"{k} {v:.2f} ms"
+                                          for k, v in split.items()))
+    kernels.sort(key=lambda e: e.device_time_total, reverse=True)
+    for e in kernels[:12]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:5d}  "
+              f"{e.key[:100]}")
+    return {"device_ms": total, "split_ms": split}
+
+
+def run_slice_int8(report: dict, card: str, root: str) -> None:
+    """W8A8 serving of phase 3's configuration and seeded weights: the run
+    directory served by `EncoderService.from_checkpoint(...,
+    quantize_int8=True)`, warm-up over every bucket, mixed-length requests
+    and `eval_step`; the launches of kernels 1 and 3 and the int8 products
+    per forward; each product held against its plain version on the path's
+    first inputs of each weight shape; the embeddings against the bf16
+    float path's; encode and audio-tower times beside bf16's (in turns);
+    the profile split; a float32 int8 pair card vs CPU."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.models.convert import export_jax_variables
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.serving import EncoderService
+    from peppa_tpu_torch.training.flax_msgpack import write_checkpoint
+    from peppa_tpu_torch.training.step import eval_step
+    from peppa_tpu_torch.utils.request_batching import group_by_bucket
+
+    cfg = default_config()  # bf16, full width; the flag comes at serving
+    model = init_model(cfg, seed=0)  # phase 3's weights
+    vdir = os.path.join(root, "int8_run", "version_0")
+    path = os.path.join(vdir, "checkpoints",
+                        "epoch=0-valnarr_triplet=0.50.ckpt")
+    os.makedirs(os.path.dirname(path))
+    cfg.dump(os.path.join(vdir, "hparams.yaml"))
+    write_checkpoint(path, {"step": np.asarray(0, np.int32),
+                            **export_jax_variables(model), "opt_state": {}})
+    with open(path + ".json", "w") as f:
+        json.dump(dict(RUN_META, best_model_path=path), f)
+    svc = EncoderService.from_checkpoint(vdir, quantize_int8=True,
+                                         batch_size=32)
+    shutil.rmtree(os.path.dirname(vdir))
+    if not (svc.config.tpu.quantize_int8
+            and svc.model.video_encoder.trunk.stem_spatial.quant):
+        raise AssertionError("from_checkpoint(quantize_int8=True) built a "
+                             "float model")
+    rng = np.random.default_rng(0)
+    waves, clips = _requests(rng, cfg, 40)
+    batch = _clip_batch(rng, cfg, 32, 2.3)
+    n_audio = len(svc.buckets) + _audio_batches(svc, waves) + 1
+    groups = group_by_bucket(clips, lambda x: svc._video_bucket(x.shape[0]))
+    n_video = len(svc.buckets) + sum(-(-len(i) // svc.batch_size)
+                                     for i in groups.values()) + 1
+
+    kept = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _int8_counts(reset=True)
+    t0 = time.perf_counter()
+    svc.warmup()
+    undo = _wrap_int8(_keep_int8(kept))  # the first real inputs
+    try:
+        a = svc.embed_audio(waves)
+        v = svc.embed_video(clips)
+        ev, ea, loss = eval_step(svc.model, batch)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, products = _counts(), _int8_counts()
+    print(f"int8 serving path: warmup + {len(waves)} audio + {len(clips)} "
+          f"video requests + eval step in {elapsed:.1f} s; launches "
+          f"{launches}; int8 products {products} over {n_audio} audio and "
+          f"{n_video} video forwards; peak memory {peak:.2f} GiB ({card})")
+    n_layers = svc.model.audio_encoder.wav2vec2.cfg.num_layers
+    want = {"attention_fwd": n_layers * n_audio, "attention_bwd": 0,
+            "triplet_loss": 1}
+    want_products = {k: n_audio * INT8_PER_AUDIO[k] + n_video
+                     * INT8_PER_VIDEO[k] for k in INT8_PER_AUDIO}
+    if launches != want or products != want_products:
+        raise AssertionError(f"int8 serving: launches {launches} != {want} "
+                             f"or products {products} != {want_products}")
+    for name, emb in (("audio", a), ("video", v)):
+        norms = np.linalg.norm(emb, axis=1)
+        if emb.shape != (40, 512) or not np.isfinite(emb).all() \
+                or np.abs(norms - 1).max() > 1e-5:
+            raise AssertionError(f"int8 {name} embeddings: {emb.shape}")
+    if not np.isfinite(loss.item()):
+        raise AssertionError(f"int8 eval loss {loss.item()}")
+    t0 = time.perf_counter()
+    held = _hold_int8(kept)
+    print(f"int8 products card vs plain (CPU): {held} weight shapes, each "
+          f"on its first input's row 0: accumulators and dequantised "
+          f"outputs equal bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    # the bf16 float path's eval step on the same batch: the cosine of the
+    # embeddings (both unit-norm)
+    fv, fa, _ = eval_step(model, batch)
+    cos = {"audio": (fa.float() * ea.float()).sum(dim=1).min().item(),
+           "video": (fv.float() * ev.float()).sum(dim=1).min().item()}
+    print(f"int8 vs bf16 float embeddings (B=32, 2.3 s), min cosine: "
+          f"audio {cos['audio']:.6f}, video {cos['video']:.6f} (bound "
+          f"{INT8_COS})")
+    if not min(cos.values()) > INT8_COS:
+        raise AssertionError(f"int8 cosine to float {cos}")
+
+    audio = torch.from_numpy(batch.audio).cuda()
+    video = torch.from_numpy(batch.video).cuda()
+    # encode at B=32 on 2.3 s and the audio tower at B=32 on 6.0 s, the
+    # bf16 float model and the int8 one in turns (phase 3's clock and
+    # statistic: median of 5 after 1)
+    samples = int(round(svc.buckets[-1] * cfg.data.audio_sample_rate))
+    long_audio = torch.from_numpy(rng.normal(scale=0.1, size=(32, samples))
+                                  .astype(np.float32)).cuda()
+    times = {(tag, what): [] for tag in ("bf16", "int8")
+             for what in ("encode", "audio_6s")}
+    with torch.inference_mode():
+        for _ in range(6):
+            for tag, m in (("bf16", model), ("int8", svc.model)):
+                for what, fn in (("encode", lambda: (m.encode_audio(audio),
+                                                     m.encode_video(video))),
+                                 ("audio_6s",
+                                  lambda: m.encode_audio(long_audio))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[tag, what].append(time.perf_counter() - t0)
+    med = {k: float(np.median(t[1:])) for k, t in times.items()}
+    rec = {"encode_pairs_per_s": 32 / med["int8", "encode"],
+           "bf16_encode_pairs_per_s": 32 / med["bf16", "encode"],
+           "audio_tower_ms_6s": med["int8", "audio_6s"] * 1e3,
+           "bf16_audio_tower_ms_6s": med["bf16", "audio_6s"] * 1e3,
+           "peak_memory_gib": peak, "cos_min": cos, "held_shapes": held,
+           "products_per_forward": {"audio": INT8_PER_AUDIO,
+                                    "video": INT8_PER_VIDEO}}
+    phase3 = report.get("encode_pairs_per_s")
+    print(f"int8 encode: {rec['encode_pairs_per_s']:.1f} pairs/s at B=32, "
+          f"2.3 s (bf16 in turns {rec['bf16_encode_pairs_per_s']:.1f}"
+          + (f"; phase 3 {phase3:.1f}" if phase3 else "") + f"); audio "
+          f"tower B=32 6.0 s {rec['audio_tower_ms_6s']:.2f} ms (bf16 "
+          f"{rec['bf16_audio_tower_ms_6s']:.2f} ms) ({card})")
+    rec["profile"] = _int8_profile(svc.model, audio, video)
+    del svc, model
+    rec["f32_card_vs_cpu"] = _int8_f32_card_vs_cpu()
+    report["launches"]["serve_int8"] = launches
+    report["serve_int8"] = rec
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2381,28 +2770,22 @@ def _results_runs(root: str, cfg) -> tuple:
 
 def _embedder_card_vs_cpu(log_dir: str, data_dir: str) -> float:
     """`Embedder.embed`'s five stages of the float32 run (version 3) on a
-    few utterances, on the card and on the CPU: the largest difference,
-    which must stay within EMB_TOL."""
+    few utterances, on the card and on the CPU, with the TF32 settings a
+    user process has: the largest difference, which must stay within
+    EMB_TOL (every stage is printed before a failure raises)."""
     import numpy as np
     import torch
 
     from peppa_tpu_torch.analysis import grsa
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        out = {}
-        for device in ("cuda", "cpu"):
-            e = grsa.Embedder(3, log_dir, data_dir)
-            e.load_audio()
-            e.embed(device=device)
-            out[device] = e.embedding
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
-    worst = 0.0
+    out = {}
+    for device in ("cuda", "cpu"):
+        e = grsa.Embedder(3, log_dir, data_dir)
+        e.load_audio()
+        e.embed(device=device)
+        out[device] = e.embedding
+    print(f"results: Embedder card vs CPU, {tf32_line()}")
+    worst, failed = 0.0, []
     for fragment_type, stages in out["cpu"].items():
         for stage, want in stages.items():
             got = out["cuda"][fragment_type][stage]
@@ -2410,8 +2793,10 @@ def _embedder_card_vs_cpu(log_dir: str, data_dir: str) -> float:
             print(f"results: Embedder {fragment_type} {stage} {got.shape}, "
                   f"float32, card vs CPU: max|d|={err:.3g} (tol {EMB_TOL})")
             if not err <= EMB_TOL:
-                raise AssertionError(f"Embedder {stage} card vs CPU: {err}")
+                failed.append(f"{stage} {err:.3g}")
             worst = max(worst, err)
+    if failed:
+        raise AssertionError(f"Embedder card vs CPU: {failed}")
     return worst
 
 
@@ -2858,7 +3243,8 @@ def _aligner_forward_ms(variables, data_dir: str) -> dict:
 
 def _aligner_card_vs_cpu(variables, data_dir: str) -> dict:
     """The aligner's log-probs of one utterance per bucket of 2, 4 and 8 s
-    in float32 (TF32 off) on the card and on the CPU, within EMB_TOL; the
+    in float32 on the card (TF32 as a user process has it) and on the
+    CPU, within EMB_TOL; the
     alignments of the two equal (words, timings, the JSON but the
     log-likelihood, which is compared within the frames' tolerance); the
     native DP equal to `_ctc_align_python` bit for bit on the card's."""
@@ -2869,19 +3255,12 @@ def _aligner_card_vs_cpu(variables, data_dir: str) -> dict:
 
     utts = {b: u for b, u in _bucket_utterances(data_dir).items()
             if b <= 8.0}
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        lps = {}
-        for device in (None, "cpu"):
-            fn = F.make_ctc_logits_fn(variables=variables, device=device)
-            lps[device] = {b: fn(path) for b, (path, _) in utts.items()}
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
-    worst = 0.0
+    lps = {}
+    for device in (None, "cpu"):
+        fn = F.make_ctc_logits_fn(variables=variables, device=device)
+        lps[device] = {b: fn(path) for b, (path, _) in utts.items()}
+    print(f"prep: CTC log-probs card vs CPU, {tf32_line()}")
+    worst, failed = 0.0, []
     for bucket, (path, meta) in utts.items():
         card, cpu = lps[None][bucket], lps["cpu"][bucket]
         err = float(np.abs(card - cpu).max())
@@ -2889,7 +3268,7 @@ def _aligner_card_vs_cpu(variables, data_dir: str) -> dict:
         print(f"prep: CTC log-probs {card.shape} ({bucket:g} s bucket), "
               f"float32, card vs CPU: max|d|={err:.3g} (tol {EMB_TOL})")
         if not err <= EMB_TOL:
-            raise AssertionError(f"log-probs card vs CPU: {err}")
+            failed.append(f"log-probs {bucket:g} s: {err:.3g}")
         transcript = meta["transcript"]
         got = F.align_ctc(card, transcript, 320 / F.ALIGN_RATE)
         want = F.align_ctc(cpu, transcript, 320 / F.ALIGN_RATE)
@@ -2901,7 +3280,8 @@ def _aligner_card_vs_cpu(variables, data_dir: str) -> dict:
         if got != want or not lik_ok:
             print(f"prep: alignments differ; the DP's path score card "
                   f"minus CPU {margin:.6g}")
-            raise AssertionError(f"alignment of {path} card vs CPU")
+            failed.append(f"alignment of {path}")
+            continue
         tokens, _ = F.text_to_tokens(transcript)
         native = F.ctc_forced_align(card, tokens)
         plain = F._ctc_align_python(card, tokens)
@@ -2912,6 +3292,8 @@ def _aligner_card_vs_cpu(variables, data_dir: str) -> dict:
               f"card's and the CPU's log-probs (path scores {margin:.3g} "
               f"apart); the native DP equals the Python DP bit for bit "
               f"(score {native[1]!r})")
+    if failed:
+        raise AssertionError(f"aligner card vs CPU: {failed}")
     return {"max_abs": worst, "buckets": sorted(utts)}
 
 
@@ -3228,8 +3610,6 @@ def card_vs_cpu() -> None:
     from peppa_tpu_torch.config import default_config
     from peppa_tpu_torch.models.dual_encoder import init_model
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = default_config()
     cfg.training.precision = "fp32"
     rng = np.random.default_rng(1)
@@ -3242,12 +3622,16 @@ def card_vs_cpu() -> None:
             v = model.encode_video(torch.from_numpy(batch.video).to(device))
         out[device] = (a.cpu().numpy(), v.cpu().numpy())
         del model
+    print(f"card vs CPU: {tf32_line()}")
+    failed = []
     for i, name in enumerate(("audio", "video")):
         err = float(np.abs(out["cuda"][i] - out["cpu"][i]).max())
         print(f"card vs CPU, float32 {name} embedding: max|d|={err:.3g} "
               f"(tol {EMB_TOL})")
         if not err <= EMB_TOL:
-            raise AssertionError(f"{name} embedding card vs CPU: {err}")
+            failed.append(f"{name} {err:.3g}")
+    if failed:
+        raise AssertionError(f"embeddings card vs CPU: {failed}")
 
 
 def card_vs_cpu_train() -> None:
@@ -3264,8 +3648,6 @@ def card_vs_cpu_train() -> None:
     from peppa_tpu_torch.training.state import TrainState
     from peppa_tpu_torch.training.step import train_step
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = default_config()
     cfg.training.precision = "fp32"
     cfg.audio.num_layers = 2
@@ -3280,10 +3662,12 @@ def card_vs_cpu_train() -> None:
                        {n: g.cpu() for n, g in state.acc_grads.items()})
         del state, model
     (card_loss, card_g), (cpu_loss, cpu_g) = out["cuda"], out["cpu"]
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     print(f"card vs CPU, float32 train micro-step: loss {card_loss:.8f} vs "
-          f"{cpu_loss:.8f}")
+          f"{cpu_loss:.8f} (relative {rel:.3g}, rtol 1e-4)")
+    failed = []
     if not abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss):
-        raise AssertionError(f"train loss card {card_loss} vs CPU {cpu_loss}")
+        failed.append(f"loss card {card_loss} vs CPU {cpu_loss}")
     # each tensor's difference over what its tolerance allows (<= 1 passes)
     worst = {"audio": (0.0, ""), "video": (0.0, "")}
     for name, want in cpu_g.items():
@@ -3297,12 +3681,26 @@ def card_vs_cpu_train() -> None:
                     / (1e-3 * want.abs().max() + 1e-8)).item()
         worst[tower] = max(worst[tower], (used, name))
         if not used <= 1.0:
-            raise AssertionError(f"gradient {name} card vs CPU: {used:.3g} "
-                                 "of its tolerance")
+            failed.append(f"gradient {name}: {used:.3g} of its tolerance")
     print(f"card vs CPU, float32 gradients ({len(cpu_g)} tensors), worst "
           "share of the tolerance used: audio (max|d| <= 1e-3 max|g| + 1e-8) "
           f"{worst['audio'][0]:.3g} at {worst['audio'][1]}, video (|d| <= "
           f"0.1 |g| + 1e-8) {worst['video'][0]:.3g} at {worst['video'][1]}")
+    if failed:
+        raise AssertionError(f"train micro-step card vs CPU: {failed}")
+
+
+def run_card_vs_cpu() -> None:
+    """Phase 5: both checks, each printed in full before either raises."""
+    failed = []
+    for check in (card_vs_cpu, card_vs_cpu_train):
+        try:
+            check()
+        except AssertionError as e:
+            print(f"card vs CPU: FAILED {e}")
+            failed.append(str(e))
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 # ------------------------------------------------------------------ main
@@ -3313,8 +3711,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
-                        choices=("2", "3", "4a", "4b", "4e", "4c", "4d",
-                                 "6", "7", "8", "5"),
+                        choices=("2", "3", "3q", "4a", "4b", "4e", "4c",
+                                 "4d", "6", "7", "8", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -3342,6 +3740,7 @@ def main() -> int:
                              check_attention_bwd(report),
                              check_loss(report))),
               ("3", lambda: run_slice(report, card)),
+              ("3q", lambda: run_slice_int8(report, card, root)),
               ("4a", lambda: run_training(report, card, "deterministic")),
               ("4b", lambda: run_training(report, card, "default")),
               ("4e", lambda: run_training(report, card, "f32")),
@@ -3350,7 +3749,7 @@ def main() -> int:
               ("6", lambda: run_evaluation(report, card, root)),
               ("7", lambda: run_results(report, card, root)),
               ("8", lambda: run_prep(report, card, root)),
-              ("5", lambda: (card_vs_cpu(), card_vs_cpu_train())))
+              ("5", run_card_vs_cpu))
     chosen = set(args.phases or [p for p, _ in phases])
     if "7" in chosen and "6" not in chosen:
         print("phase 7 reads phase 6's run directories and score files: "
@@ -3373,6 +3772,7 @@ def main() -> int:
         print(json.dumps({k: v for k, v in report.items()
                           if k in ("launches", "evaluation", "results",
                                    "prep", "attention", "attention_bwd",
+                                   "serve_int8",
                                    *TRAIN_TAGS.values())},
                          default=str))
         print(card)
@@ -3404,6 +3804,7 @@ def main() -> int:
     print(json.dumps({"encode_pairs_per_s": report["encode_pairs_per_s"],
                       "batch": 32, "bucket_s": 2.3,
                       "audio_tower_ms_6s": report["audio_tower_ms_6s"],
+                      "serve_int8": report["serve_int8"],
                       **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
                       "trainer": report["trainer"],

@@ -104,7 +104,8 @@ class TPUConfig:
 
     The port reads `bucket_durations` (serving shapes), `bn_dtype`,
     `use_pallas` (the attention kernels, else the plain route),
-    `quantize_int8` (raises when true), `native_loader`,
+    `quantize_int8` (W8A8 int8 towers on the eval path, `ops/quant.py`),
+    `native_loader`,
     `pack_audio_int16` and `prefetch` (the data pipeline and the trainer),
     `preempt_signals`, `collapse_guard` and `collapse_window` (the
     trainer).  It ignores `remat_video` and `remat_audio` (memory only),

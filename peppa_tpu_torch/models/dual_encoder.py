@@ -35,10 +35,8 @@ class PeppaPig(nn.Module):
 
     def __init__(self, config: Config):
         super().__init__()
-        if config.tpu.quantize_int8:
-            raise NotImplementedError(
-                "tpu.quantize_int8 (W8A8 towers) comes in a later slice")
         self.config = config
+        quant = config.tpu.quantize_int8  # W8A8 on every tower's eval path
         dtype = dtype_of(config.training.precision)
         audio_kw = {}
         if config.audio.num_layers is not None:
@@ -50,7 +48,7 @@ class PeppaPig(nn.Module):
         self.audio_encoder = Wav2Vec2Encoder(
             full=config.audio.full, pooling=config.audio.pooling,
             project=config.audio.project, cfg=Wav2Vec2Config(**audio_kw),
-            dtype=dtype, use_pallas=config.tpu.use_pallas)
+            dtype=dtype, use_pallas=config.tpu.use_pallas, quant=quant)
         bn_dtype = (getattr(torch, config.tpu.bn_dtype)
                     if config.tpu.bn_dtype else None)
         if config.video.static:
@@ -58,7 +56,8 @@ class PeppaPig(nn.Module):
             mean, std = resolve_stats(norm, config.data.data_dir)
             self.video_encoder = ImageEncoder(
                 pooling=config.video.pooling, project=config.video.project,
-                mean=mean, std=std, dtype=dtype, bn_dtype=bn_dtype)
+                mean=mean, std=std, dtype=dtype, bn_dtype=bn_dtype,
+                quant=quant)
             return
         # kinetics stats if pretrained else peppa
         norm = "kinetics" if config.video.pretrained else "peppa"
@@ -67,7 +66,7 @@ class PeppaPig(nn.Module):
             version=config.video.version, pooling=config.video.pooling,
             project=config.video.project, mean=mean, std=std, dtype=dtype,
             bn_dtype=bn_dtype,
-            midplanes_multiple=config.video.midplanes_multiple)
+            midplanes_multiple=config.video.midplanes_multiple, quant=quant)
 
     def encode_video(self, video: torch.Tensor,
                      frame_lengths: Optional[torch.Tensor] = None,

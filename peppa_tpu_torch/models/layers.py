@@ -1,12 +1,16 @@
 """Building blocks and pooling modules of the encoders.
 
-Mirrors peppa_tpu/models/layers.py (the poolers) and the parameter
-conventions of peppa_tpu/models/qlayers.py.  Parameters are float32, as the
-JAX package keeps them; `Dense` and `Conv` cast input and weights to their
-compute dtype at call time (bf16 on the bf16 model), `LayerNorm` and
-`GroupNorm` compute and return float32, and `BatchNorm` computes in float32
-and returns its dtype, as flax does.  `Dropout` draws its mask from the
-`torch.Generator` it is given.
+Mirrors peppa_tpu/models/layers.py (the poolers) and
+peppa_tpu/models/qlayers.py: `Dense` and `Conv` are the port's `QDense` and
+`QConv`, with the same parameters whether or not they are built with
+`quant=True`.  Built so, an eval call (`train` False, the default) runs the
+W8A8 path of `ops/quant.py` on the uncast input, as the JAX layers do; a
+training call runs the float path, bit for bit.  Parameters are float32, as
+the JAX package keeps them; on the float path `Dense` and `Conv` cast input
+and weights to their compute dtype at call time (bf16 on the bf16 model),
+`LayerNorm` and `GroupNorm` compute and return float32, and `BatchNorm`
+computes in float32 and returns its dtype, as flax does.  `Dropout` draws
+its mask from the `torch.Generator` it is given.
 
 Weight layouts are PyTorch's: Linear (out, in), Conv (out, in, *kernel).
 `models/convert.py` moves the JAX package's layouts into them.
@@ -21,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from peppa_tpu_torch.ops.quant import int8_conv, int8_matmul
+
 
 def length_mask(lengths: torch.Tensor, size: int) -> torch.Tensor:
     """(B,) valid lengths -> (B, size) boolean mask."""
@@ -30,36 +36,49 @@ def length_mask(lengths: torch.Tensor, size: int) -> torch.Tensor:
 
 class Dense(nn.Module):
     """y = x W^T + b in `dtype`; `dtype=None` computes in float32 (flax's
-    promotion of bf16 inputs against float32 parameters)."""
+    promotion of bf16 inputs against float32 parameters).  With `quant`,
+    an eval call takes the int8 product and adds the bias in `dtype`
+    after it (`QDense`)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: Optional[torch.dtype] = None, bias: bool = True):
+                 dtype: Optional[torch.dtype] = None, bias: bool = True,
+                 quant: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.quant = quant
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype or torch.float32
         b = self.bias.to(dt) if self.bias is not None else None
+        if self.quant and not train:
+            y = int8_matmul(x, self.weight, dt)
+            return y + b if b is not None else y
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
 class Conv(nn.Module):
-    """Bias-free N-d convolution (N = len(kernel)) on channels-first input."""
+    """Bias-free N-d convolution (N = len(kernel)) on channels-first input.
+    With `quant`, an eval call takes the int8 conv (`QConv`)."""
 
     def __init__(self, in_features: int, out_features: int,
                  kernel: Sequence[int], stride: Sequence[int],
-                 padding: Sequence[int], dtype: torch.dtype):
+                 padding: Sequence[int], dtype: torch.dtype,
+                 quant: bool = False):
         super().__init__()
         self.stride = tuple(stride)
         self.padding = tuple(padding)
         self.dtype = dtype
+        self.quant = quant
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, *kernel))
         self._conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[len(kernel)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.quant and not train:
+            return int8_conv(x, self.weight, self.stride, self.padding,
+                             self.dtype)
         return self._conv(x.to(self.dtype), self.weight.to(self.dtype),
                           None, self.stride, self.padding)
 

@@ -22,6 +22,13 @@ it is normalised in float32, cast to the model dtype and permuted to
 (B, C, T, H, W) inside.  The JAX package's space-to-depth stem is an exact
 re-layout of the plain strided conv on the same (t, 7, 7, 3, F) parameter,
 so the port runs the plain conv.
+
+`quant` (the config's `tpu.quantize_int8`) runs every trunk conv (both stem
+convs, both convs of each block's conv units, every `downsample`) as a W8A8
+int8 conv (`ops/quant.py`) on the eval path only: 37 a forward on
+R(2+1)D-18.  The S2D stem is exact in int8 too (its weight and activation
+absmax are those of the plain conv), so the plain conv is quantized.  The
+pool and `project` stay float.
 """
 
 from __future__ import annotations
@@ -46,24 +53,28 @@ def midplanes(c_in: int, c_out: int, multiple: Optional[int] = None) -> int:
 
 
 def _conv(c_in: int, c_out: int, kernel: Sequence[int],
-          stride: Sequence[int], dtype: torch.dtype) -> Conv:
+          stride: Sequence[int], dtype: torch.dtype,
+          quant: bool = False) -> Conv:
     return Conv(c_in, c_out, kernel, stride, conv_padding(tuple(kernel)),
-                dtype)
+                dtype, quant)
 
 
 class Conv2Plus1D(nn.Module):
     """(1,3,3) spatial conv -> BN -> ReLU -> (3,1,1) temporal conv."""
 
     def __init__(self, in_features: int, features: int, mid: int,
-                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype):
+                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype,
+                 quant: bool = False):
         super().__init__()
         self.spatial = _conv(in_features, mid, (1, 3, 3), (1, stride, stride),
-                             dtype)
+                             dtype, quant)
         self.bn_mid = BatchNorm(mid, bn_dtype)
-        self.temporal = _conv(mid, features, (3, 1, 1), (stride, 1, 1), dtype)
+        self.temporal = _conv(mid, features, (3, 1, 1), (stride, 1, 1), dtype,
+                              quant)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.temporal(torch.relu(self.bn_mid(self.spatial(x), train)))
+        x = torch.relu(self.bn_mid(self.spatial(x, train), train))
+        return self.temporal(x, train)
 
     @staticmethod
     def downsample_stride(s: int) -> Tuple[int, int, int]:
@@ -74,13 +85,14 @@ class Conv3DSimple(nn.Module):
     """Full (3,3,3) 3D conv."""
 
     def __init__(self, in_features: int, features: int, mid: int,
-                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype):
+                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype,
+                 quant: bool = False):
         super().__init__()
         self.conv = _conv(in_features, features, (3, 3, 3), (stride,) * 3,
-                          dtype)
+                          dtype, quant)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.conv(x)
+        return self.conv(x, train)
 
     @staticmethod
     def downsample_stride(s: int) -> Tuple[int, int, int]:
@@ -91,13 +103,14 @@ class Conv3DNoTemporal(nn.Module):
     """(1,3,3) spatial-only conv (MC3 layers 2-4)."""
 
     def __init__(self, in_features: int, features: int, mid: int,
-                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype):
+                 stride: int, dtype: torch.dtype, bn_dtype: torch.dtype,
+                 quant: bool = False):
         super().__init__()
         self.conv = _conv(in_features, features, (1, 3, 3),
-                          (1, stride, stride), dtype)
+                          (1, stride, stride), dtype, quant)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.conv(x)
+        return self.conv(x, train)
 
     @staticmethod
     def downsample_stride(s: int) -> Tuple[int, int, int]:
@@ -120,20 +133,21 @@ class BasicBlock(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int,
                  dtype: torch.dtype, bn_dtype: torch.dtype,
                  midplanes_multiple: Optional[int] = None,
-                 conv_maker: type = Conv2Plus1D):
+                 conv_maker: type = Conv2Plus1D, quant: bool = False):
         super().__init__()
         # torchvision computes midplanes once per block and uses it for both
         mid = midplanes(in_features, features, midplanes_multiple)
         self.conv1 = conv_maker(in_features, features, mid, stride, dtype,
-                                bn_dtype)
+                                bn_dtype, quant)
         self.bn1 = BatchNorm(features, bn_dtype)
-        self.conv2 = conv_maker(features, features, mid, 1, dtype, bn_dtype)
+        self.conv2 = conv_maker(features, features, mid, 1, dtype, bn_dtype,
+                                quant)
         self.bn2 = BatchNorm(features, bn_dtype)
         self.downsample = self.bn_down = None
         if stride != 1 or in_features != features:
             self.downsample = _conv(in_features, features, (1, 1, 1),
                                     conv_maker.downsample_stride(stride),
-                                    dtype)
+                                    dtype, quant)
             self.bn_down = BatchNorm(features, bn_dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -141,7 +155,7 @@ class BasicBlock(nn.Module):
         out = self.bn2(self.conv2(out, train), train)
         identity = x
         if self.downsample is not None:
-            identity = self.bn_down(self.downsample(x), train)
+            identity = self.bn_down(self.downsample(x, train), train)
         return torch.relu(out + identity)
 
 
@@ -150,19 +164,21 @@ class VideoResNetTrunk(nn.Module):
 
     def __init__(self, dtype: torch.dtype, bn_dtype: torch.dtype,
                  midplanes_multiple: Optional[int] = None,
-                 version: str = "r2plus1d_18"):
+                 version: str = "r2plus1d_18", quant: bool = False):
         super().__init__()
         if version not in CONV_MAKERS:
             raise ValueError(f"Unknown video version {version!r}")
         self.version = version
         if version == "r2plus1d_18":
             self.stem_spatial = Conv(3, 45, (1, 7, 7), (1, 2, 2), (0, 3, 3),
-                                     dtype)
+                                     dtype, quant)
             self.stem_bn1 = BatchNorm(45, bn_dtype)
-            self.stem_temporal = _conv(45, 64, (3, 1, 1), (1, 1, 1), dtype)
+            self.stem_temporal = _conv(45, 64, (3, 1, 1), (1, 1, 1), dtype,
+                                       quant)
             self.stem_bn2 = BatchNorm(64, bn_dtype)
         else:
-            self.stem = Conv(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), dtype)
+            self.stem = Conv(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), dtype,
+                             quant)
             self.stem_bn = BatchNorm(64, bn_dtype)
         self.blocks = []
         in_features = 64
@@ -173,16 +189,16 @@ class VideoResNetTrunk(nn.Module):
                 name = f"layer{li}_block{bi}"
                 self.add_module(name, BasicBlock(
                     in_features, width, stride if bi == 0 else 1, dtype,
-                    bn_dtype, midplanes_multiple, maker))
+                    bn_dtype, midplanes_multiple, maker, quant))
                 self.blocks.append(name)
                 in_features = width
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.version == "r2plus1d_18":
-            x = torch.relu(self.stem_bn1(self.stem_spatial(x), train))
-            x = torch.relu(self.stem_bn2(self.stem_temporal(x), train))
+            x = torch.relu(self.stem_bn1(self.stem_spatial(x, train), train))
+            x = torch.relu(self.stem_bn2(self.stem_temporal(x, train), train))
         else:
-            x = torch.relu(self.stem_bn(self.stem(x), train))
+            x = torch.relu(self.stem_bn(self.stem(x, train), train))
         for name in self.blocks:
             x = getattr(self, name)(x, train)
         return x  # (B, 512, T', H', W')
@@ -197,7 +213,8 @@ class R3DEncoder(nn.Module):
                  std: Sequence[float] = (0.22803, 0.22145, 0.216989),
                  dtype: torch.dtype = torch.float32,
                  bn_dtype: Optional[torch.dtype] = None,
-                 midplanes_multiple: Optional[int] = None):
+                 midplanes_multiple: Optional[int] = None,
+                 quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.t_stride = temporal_stride(version)
@@ -206,7 +223,7 @@ class R3DEncoder(nn.Module):
         self.register_buffer("std", torch.tensor(std, dtype=torch.float32),
                              persistent=False)
         self.trunk = VideoResNetTrunk(dtype, bn_dtype or dtype,
-                                      midplanes_multiple, version)
+                                      midplanes_multiple, version, quant)
         self.pool = make_video_pool(pooling)
         self.project = Dense(512, 512, dtype) if project else None
 

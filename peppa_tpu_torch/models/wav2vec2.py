@@ -14,6 +14,12 @@ bf16 precision policy):
   float32 and only the Dense layers run in bf16;
 - aux head Dense(768 -> 28).
 
+`quant` (the config's `tpu.quantize_int8`) runs conv1-6 (conv0 reads the
+raw audio and stays float), `proj`, the attention's q/k/v/out projections
+and the FFN's two Dense layers as W8A8 int8 products (`ops/quant.py`) on
+the eval path (`deterministic`) only, as the JAX module does: 6 + 1 + 6 per
+layer.  `pos_conv`, `aux`, the pool and `project` stay float.
+
 Training (`deterministic=False`) adds the JAX module's dropout (after
 `proj`, after `encoder_ln`, on the attention output, after the FFN GELU and
 after `ffn_out`, on the attention probabilities) and layer-drop (one
@@ -85,22 +91,24 @@ class Wav2Vec2Config:
 class ConvFeatureExtractor(nn.Module):
     """7-layer strided conv front end, x320 downsample."""
 
-    def __init__(self, dtype: torch.dtype):
+    def __init__(self, dtype: torch.dtype, quant: bool = False):
         super().__init__()
         convs = []
         c_in = 1
-        for ch, k, s in CONV_LAYERS:
-            convs.append(Conv(c_in, ch, (k,), (s,), (0,), dtype))
+        for i, (ch, k, s) in enumerate(CONV_LAYERS):
+            convs.append(Conv(c_in, ch, (k,), (s,), (0,), dtype,
+                              quant=quant and i > 0))
             c_in = ch
         for i, conv in enumerate(convs):
             self.add_module(f"conv{i}", conv)
         self.n_layers = len(convs)
         self.group_norm = GroupNorm(CONV_LAYERS[0][0], CONV_LAYERS[0][0])
 
-    def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+    def forward(self, waveform: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
         x = waveform[:, None, :]  # (B, 1, S)
         for i in range(self.n_layers):
-            x = getattr(self, f"conv{i}")(x)
+            x = getattr(self, f"conv{i}")(x, not deterministic)
             if i == 0:
                 # groups == channels: per-channel norm over time, float32
                 x = self.group_norm(x)
@@ -144,16 +152,16 @@ class SelfAttention(nn.Module):
     with dropout on the probabilities in training (module doc)."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, quant: bool = False):
         super().__init__()
         d = cfg.embed_dim
         self.heads = cfg.num_heads
         self.dtype = dtype
         self.use_pallas = use_pallas
-        self.q_proj = Dense(d, d, dtype)
-        self.k_proj = Dense(d, d, dtype)
-        self.v_proj = Dense(d, d, dtype)
-        self.out_proj = Dense(d, d, dtype)
+        self.q_proj = Dense(d, d, dtype, quant=quant)
+        self.k_proj = Dense(d, d, dtype, quant=quant)
+        self.v_proj = Dense(d, d, dtype, quant=quant)
+        self.out_proj = Dense(d, d, dtype, quant=quant)
         self.attn_dropout = Dropout(cfg.attention_dropout)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -161,9 +169,10 @@ class SelfAttention(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, d = x.shape
         hd = d // self.heads
-        q = self.q_proj(x).view(b, t, self.heads, hd)
-        k = self.k_proj(x).view(b, t, self.heads, hd)
-        v = self.v_proj(x).view(b, t, self.heads, hd)
+        train = not deterministic
+        q = self.q_proj(x, train).view(b, t, self.heads, hd)
+        k = self.k_proj(x, train).view(b, t, self.heads, hd)
+        v = self.v_proj(x, train).view(b, t, self.heads, hd)
         scale = hd ** -0.5
         if self.use_pallas and (deterministic
                                 or self.attn_dropout.rate == 0.0):
@@ -178,19 +187,19 @@ class SelfAttention(nn.Module):
             probs = torch.softmax(logits, dim=-1).to(self.dtype)
             probs = self.attn_dropout(probs, deterministic, generator)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out_proj(out.reshape(b, t, d))
+        return self.out_proj(out.reshape(b, t, d), train)
 
 
 class TransformerLayer(nn.Module):
     """Post-norm transformer layer (wav2vec2-base: layer_norm_first=False)."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, quant: bool = False):
         super().__init__()
-        self.attention = SelfAttention(cfg, dtype, use_pallas)
+        self.attention = SelfAttention(cfg, dtype, use_pallas, quant)
         self.ln1 = LayerNorm(cfg.embed_dim)
-        self.ffn_in = Dense(cfg.embed_dim, cfg.ffn_dim, dtype)
-        self.ffn_out = Dense(cfg.ffn_dim, cfg.embed_dim, dtype)
+        self.ffn_in = Dense(cfg.embed_dim, cfg.ffn_dim, dtype, quant=quant)
+        self.ffn_out = Dense(cfg.ffn_dim, cfg.embed_dim, dtype, quant=quant)
         self.ln2 = LayerNorm(cfg.embed_dim)
         self.dropout = Dropout(cfg.dropout)
         self.activation_dropout = Dropout(cfg.activation_dropout)
@@ -201,9 +210,10 @@ class TransformerLayer(nn.Module):
         attn = self.attention(x, lengths, deterministic, generator)
         attn = self.dropout(attn, deterministic, generator)
         x = self.ln1(x + attn)
-        y = self.activation_dropout(gelu(self.ffn_in(x)), deterministic,
-                                    generator)
-        y = self.dropout(self.ffn_out(y), deterministic, generator)
+        train = not deterministic
+        y = self.activation_dropout(gelu(self.ffn_in(x, train)),
+                                    deterministic, generator)
+        y = self.dropout(self.ffn_out(y, train), deterministic, generator)
         return self.ln2(x + y)
 
 
@@ -217,21 +227,21 @@ class Wav2Vec2(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config = Wav2Vec2Config(),
                  dtype: torch.dtype = torch.float32, conv_only: bool = False,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, quant: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.feature_extractor = ConvFeatureExtractor(dtype)
+        self.feature_extractor = ConvFeatureExtractor(dtype, quant)
         if conv_only:
             return
         c = CONV_LAYERS[-1][0]
         self.proj_ln = LayerNorm(c)
-        self.proj = Dense(c, cfg.embed_dim, dtype)
+        self.proj = Dense(c, cfg.embed_dim, dtype, quant=quant)
         self.pos_conv = ConvPositionalEmbedding(cfg, dtype)
         self.encoder_ln = LayerNorm(cfg.embed_dim)
         self.dropout = Dropout(cfg.dropout)
         for i in range(cfg.num_layers):
             self.add_module(f"layer{i}",
-                            TransformerLayer(cfg, dtype, use_pallas))
+                            TransformerLayer(cfg, dtype, use_pallas, quant))
         self.aux = Dense(cfg.embed_dim, cfg.num_out, dtype)
 
     def forward(self, waveform: torch.Tensor,
@@ -242,14 +252,14 @@ class Wav2Vec2(nn.Module):
         """waveform (B, S) -> (features at `tap`, frame lengths or None).
         Training (`deterministic=False`) draws dropout and layer-drop from
         `generator`."""
-        feats = self.feature_extractor(waveform)
+        feats = self.feature_extractor(waveform, deterministic)
         frame_lengths = (conv_output_length(sample_lengths)
                          if sample_lengths is not None else None)
         if tap == "conv":
             return feats, frame_lengths
 
-        x = self.dropout(self.proj(self.proj_ln(feats)), deterministic,
-                         generator)
+        x = self.dropout(self.proj(self.proj_ln(feats), not deterministic),
+                         deterministic, generator)
         x = self.encoder_ln(x + self.pos_conv(x))
         x = self.dropout(x, deterministic, generator)
         attn_lengths = frame_lengths if mask_padding else None
@@ -282,11 +292,12 @@ class Wav2Vec2Encoder(nn.Module):
     def __init__(self, full: bool = True, pooling: str = "attention",
                  project: bool = True,
                  cfg: Wav2Vec2Config = Wav2Vec2Config(),
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = True):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = True,
+                 quant: bool = False):
         super().__init__()
         self.full = full
         self.wav2vec2 = Wav2Vec2(cfg, dtype, conv_only=not full,
-                                 use_pallas=use_pallas)
+                                 use_pallas=use_pallas, quant=quant)
         n_features = cfg.num_out if full else CONV_LAYERS[-1][0]
         self.pool = make_audio_pool(pooling, n_features)
         self.project = Dense(n_features, 512, dtype) if project else None

@@ -60,14 +60,21 @@ class EncoderService:
         """The service of a run directory's best checkpoint (by its
         monitor score; the port's, the JAX package's or the reference's,
         `training/checkpoint.py::load_best_model`), on `device` (None: the
-        card; raises without CUDA).  `quantize_int8=True` raises: W8A8 is
-        not ported yet."""
+        card; raises without CUDA).  `quantize_int8` overrides the
+        checkpoint's `tpu.quantize_int8`: the model is built again with
+        the flag and takes the same weights (W8A8 serving, `ops/quant.py`;
+        the quantization happens at call time, so the checkpoint is the
+        same)."""
+        from peppa_tpu_torch.models.dual_encoder import PeppaPig
         from peppa_tpu_torch.training.checkpoint import load_best_model
 
-        if quantize_int8:
-            raise NotImplementedError(
-                "tpu.quantize_int8 (W8A8 towers) comes in a later slice")
         model, config, _ = load_best_model(version_dir, device=device)
+        if (quantize_int8 is not None
+                and quantize_int8 != config.tpu.quantize_int8):
+            config.tpu.quantize_int8 = quantize_int8
+            rebuilt = PeppaPig(config)
+            rebuilt.load_state_dict(model.state_dict())
+            model = rebuilt
         return cls(model, config, device=device, **kw)
 
     # ------------------------------------------------------------- shapes

@@ -29,19 +29,25 @@ def test_config_presets_load_alike(path):
 
 @pytest.mark.parametrize("path", PRESETS, ids=os.path.basename)
 def test_config_presets_leave_int8_off(path):
-    """The port refuses `tpu.quantize_int8` (below), so no committed preset
-    may turn it on."""
+    """W8A8 serving (`tpu.quantize_int8`) is opt-in, as in the JAX package:
+    no committed preset turns it on."""
     assert config.Config.load(path).tpu.quantize_int8 is False
 
 
-def test_quantize_int8_is_refused():
-    """The JAX package runs every tower as W8A8 under the flag; the port has
-    no int8 towers yet, so it raises instead of running bf16 silently."""
+def test_quantize_int8_keeps_the_state_dict():
+    """`PeppaPig` builds with `tpu.quantize_int8` and has the float model's
+    state-dict keys and shapes, so `load_jax_variables` is unchanged: the
+    float model's JAX variables load into it."""
+    from peppa_tpu_torch.models.convert import export_jax_variables
     from peppa_tpu_torch.models.dual_encoder import PeppaPig
 
-    cfg = config.Config.from_dict({"tpu": {"quantize_int8": True}})
-    with pytest.raises(NotImplementedError, match="quantize_int8"):
-        PeppaPig(cfg)
+    raw = {"audio": {"num_layers": 1}}
+    q = PeppaPig(config.Config.from_dict({**raw,
+                                          "tpu": {"quantize_int8": True}}))
+    f = PeppaPig(config.Config.from_dict(raw))
+    assert ({k: v.shape for k, v in q.state_dict().items()}
+            == {k: v.shape for k, v in f.state_dict().items()})
+    load_jax_variables(q, export_jax_variables(f))
 
 
 def test_config_dump_round_trips(tmp_path):

@@ -599,8 +599,9 @@ def test_launch_count_is_exact_under_threads(cuda):
 
 def test_ctc_logits_fn_on_the_card_matches_the_cpu(cuda, tmp_path):
     """A small wav2vec2 CTC model (2 layers, 4 heads of 16) on the card and
-    on the CPU: log-probs within 1e-4 (TF32 off), one kernel 1 launch per
-    layer and utterance, each with the utterance's frames as key length."""
+    on the CPU: log-probs within 1e-4 (TF32 as a user process has it), one
+    kernel 1 launch per layer and utterance, each with the utterance's
+    frames as key length."""
     import numpy as np
 
     from peppa_tpu_torch.models import wav2vec2 as W
@@ -617,18 +618,12 @@ def test_ctc_logits_fn_on_the_card_matches_the_cpu(cuda, tmp_path):
     path = str(tmp_path / "a.wav")
     F._write_wav(path, np.sin(np.arange(int(1.3 * 16000)) * 0.05) * 0.3,
                  16000)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        out = {}
-        for device in ("cuda", "cpu"):
-            fn = F.make_ctc_logits_fn(variables=variables, cfg=cfg,
-                                      device=device)
-            before = mha_attention.launches
-            out[device] = fn(path)
-            out[device + "_launches"] = mha_attention.launches - before
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+    out = {}
+    for device in ("cuda", "cpu"):
+        fn = F.make_ctc_logits_fn(variables=variables, cfg=cfg, device=device)
+        before = mha_attention.launches
+        out[device] = fn(path)
+        out[device + "_launches"] = mha_attention.launches - before
     assert out["cuda_launches"] == cfg.num_layers
     assert out["cpu_launches"] == 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
@@ -891,3 +886,89 @@ def test_attention_bwd_f32_bit_identical_threads(cuda, b, t):
         results = list(pool.map(run, range(8)))
     assert all(torch.equal(x, y) for outs in results for got in outs
                for x, y in zip(first, got))
+
+
+# ------------------------------------ W8A8 int8 products (a library call)
+#
+# `ops/quant.py` runs im2col + `torch._int_mm` on the card and a float64
+# conv / `_int_mm` on the CPU; cuBLASLt's rules (M > 16, K and N multiples
+# of 8) are met by zero padding.  These are R(2+1)D-18's odd widths (N 45,
+# 230, 460, 921; K 147, 690, 1380, 2763), the static stem and wav2vec2's
+# widths, at small spatial sizes.
+
+INT8_CONVS = {
+    "stem_spatial_n45_k147": ((2, 3, 4, 24, 20), (45, 3, 1, 7, 7),
+                              (1, 2, 2), (0, 3, 3)),
+    "stem_temporal_k135": ((2, 45, 4, 12, 10), (64, 45, 3, 1, 1), (1, 1, 1),
+                           (1, 0, 0)),
+    "spatial_n230": ((2, 64, 4, 12, 10), (230, 64, 1, 3, 3), (1, 2, 2),
+                     (0, 1, 1)),
+    "temporal_k690": ((2, 230, 4, 6, 5), (128, 230, 3, 1, 1), (2, 1, 1),
+                      (1, 0, 0)),
+    "spatial_n460": ((2, 128, 2, 6, 5), (460, 128, 1, 3, 3), (1, 2, 2),
+                     (0, 1, 1)),
+    "temporal_k1380": ((2, 460, 2, 3, 3), (256, 460, 3, 1, 1), (2, 1, 1),
+                       (1, 0, 0)),
+    "spatial_n921": ((2, 256, 1, 3, 3), (921, 256, 1, 3, 3), (1, 2, 2),
+                     (0, 1, 1)),
+    "temporal_k2763": ((2, 921, 3, 2, 2), (512, 921, 3, 1, 1), (1, 1, 1),
+                       (1, 0, 0)),
+    "downsample": ((2, 64, 4, 6, 6), (128, 64, 1, 1, 1), (2, 2, 2),
+                   (0, 0, 0)),
+    "static_stem_k147": ((3, 3, 24, 20), (64, 3, 7, 7), (2, 2), (3, 3)),
+    "w2v_conv1": ((2, 512, 99), (512, 512, 3), (2,), (0,)),
+}
+INT8_MATMULS = {"proj_m14": ((2, 7, 512), 768), "ffn_in": ((2, 40, 768), 3072),
+                "k147_n45": ((20, 147), 45)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(INT8_CONVS))
+def test_int8_conv_on_the_card_equals_the_plain_version(cuda, case, dtype):
+    from peppa_tpu_torch.ops import quant
+
+    x_shape, w_shape, stride, padding = INT8_CONVS[case]
+    gen = torch.Generator().manual_seed(len(case))
+    x = torch.randn(x_shape, generator=gen).to(dtype)
+    w = torch.randn(w_shape, generator=gen) * 0.1
+    want = quant.int8_conv(x, w, stride, padding, dtype)
+    got = quant.int8_conv(x.to(cuda), w.to(cuda), stride, padding, dtype)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    xq = quant.quantize_int8(x, quant.act_scale(x))
+    wq = quant.quantize_int8(w, quant.absmax_weight_scale(w))
+    acc = quant.conv_acc_mm(xq.to(cuda), wq.to(cuda), stride, padding)
+    assert torch.equal(acc.cpu(), quant.conv_acc_plain(xq, wq, stride,
+                                                       padding))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(INT8_MATMULS))
+def test_int8_matmul_on_the_card_equals_the_plain_version(cuda, case, dtype):
+    from peppa_tpu_torch.ops import quant
+
+    x_shape, n = INT8_MATMULS[case]
+    gen = torch.Generator().manual_seed(len(case))
+    x = torch.randn(x_shape, generator=gen).to(dtype)
+    w = torch.randn(n, x_shape[-1], generator=gen) * 0.1
+    want = quant.int8_matmul(x, w, dtype)
+    got = quant.int8_matmul(x.to(cuda), w.to(cuda), dtype)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_float32_convolutions_run_without_tf32(cuda):
+    """The port's pin is in force once a tower is imported: a float32 conv
+    on the card is a float32 conv (within 1e-5 of float64), where TF32's
+    10-bit mantissa would miss by about 1e-3."""
+    from peppa_tpu_torch.models import wav2vec2  # noqa: F401  (the pin)
+
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 512, 400, generator=gen)
+    w = torch.randn(512, 512, 3, generator=gen) * 0.05
+    got = torch.nn.functional.conv1d(x.to(cuda), w.to(cuda), stride=2)
+    want = torch.nn.functional.conv1d(x.double(), w.double(), stride=2)
+    err = ((got.cpu().double() - want).abs().max() / want.abs().max()).item()
+    assert err < 1e-5, err

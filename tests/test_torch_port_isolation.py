@@ -193,3 +193,23 @@ def test_aligner_raises_without_cuda(monkeypatch, tmp_path):
                {"variables": {"params": {}}}):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_ctc_logits_fn(**kw)
+
+
+_TF32_PROBE = r"""
+import torch
+from peppa_tpu_torch.preprocess import forced_align  # noqa: F401
+from peppa_tpu_torch.analysis import grsa  # noqa: F401
+print(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+"""
+
+
+def test_float32_paths_pin_tf32_off():
+    """A fresh process that imports the aligner and the GRSA embedder has
+    both TF32 flags off: cuDNN's (PyTorch's default is on) and the
+    matmul's.  The flags read and set without CUDA."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _TF32_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.split() == ["False", "False"], out.stdout

@@ -183,9 +183,19 @@ def test_trainer_end_to_end(tmp_path):
                                   mem.embed_audio([wave]))
     np.testing.assert_array_equal(svc.embed_video([clip]),
                                   mem.embed_video([clip]))
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        EncoderService.from_checkpoint(vdir, device="cpu",
-                                       quantize_int8=True)
+    # the override serves int8: the trained weights rebuilt with the flag
+    svc8 = EncoderService.from_checkpoint(vdir, device="cpu", batch_size=2,
+                                          quantize_int8=True)
+    assert svc8.config.tpu.quantize_int8 is True
+    cfg8 = Config.from_dict(trainer.config.to_dict())
+    cfg8.tpu.quantize_int8 = True
+    built = PeppaPig(cfg8)
+    built.load_state_dict(state.model.state_dict())
+    mem8 = EncoderService(built, cfg8, device="cpu", batch_size=2)
+    a8 = svc8.embed_audio([wave])
+    np.testing.assert_array_equal(a8, mem8.embed_audio([wave]))
+    assert not np.array_equal(a8, mem.embed_audio([wave]))
+    assert float((a8 * mem.embed_audio([wave])).sum()) > 0.99
     # the next run in the same log dir gets version_1
     trainer2 = L.Trainer(tiny_config(), log_dir=str(tmp_path / "logs"),
                          device="cpu")
