@@ -46,6 +46,23 @@ Phases:
      2.3 s pair on the card and the CPU, each product on the card fed the
      CPU's input (as tests/test_torch_port_quant.py holds the port to the
      JAX package);
+ 3x. the deployment path on the same configuration and weights: `python
+     -m peppa_tpu_torch.export` on 3q's run directory (weight-free
+     `torch.export` programs of both towers at every bucket, B=32, and the
+     weights once), beside it `python -m peppa_tpu_torch.example` over
+     three 44.1 kHz WAV files and the W8A8 towers' export at 2.3 s (three
+     processes at once on the host's cores); each program's export
+     seconds and bytes, 12 `peppa_tpu_torch.mha_attention` nodes and no
+     einsum in each audio graph, 79 / 37 `aten._int_mm` nodes in the int8
+     audio / video graphs; a second process (`--serve_artifacts`, JAX
+     blocked, no model code imported) that loads the artifacts with
+     `ExportedEncoders` and serves phase 3's requests (the int8 artifact
+     those of the 2.3 s bucket): embeddings equal bit for bit to the live
+     `EncoderService`s', kernel 1 12 times per audio program call, no plain
+     version on the card, then kernel 1 against its plain version on the
+     path's first input, and the host time to issue it through the custom
+     op; each artifact's load seconds and peak memory; encode pairs/s at
+     B=32, 2.3 s, artifact and live in turns;
   4. the training step of the same configuration at full width and depth,
      bf16, micro-batch 8 of 2.3 s clips, `accumulate_grad_batches` 8, for 2
      optimizer steps (16 micro-steps), twice: (a) `audio.dropout: 0.0`,
@@ -156,7 +173,8 @@ last line `{"ok": true, "device": {...}}`.  With `--phases`, only those
 phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 7 brings phase 6), and the summary is their records.
 
-Launch counts are set to 0 just before each main path (3, 3q, 4a, 4b, 4e, the
+Launch counts are set to 0 just before each main path (3, 3q, 3x's artifact
+serving in its own process, 4a, 4b, 4e, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
 the battery, the targeted path and the towers of 6, each model step of
 7, the realign and the targeted path of 8) and read just after it.
@@ -1070,6 +1088,30 @@ def _int8_profile(model, audio, video) -> dict:
     return {"device_ms": total, "split_ms": split}
 
 
+def _msgpack_run(model, cfg, root: str) -> str:
+    """`model` (phase 3's configuration and seeded weights) as a run
+    directory of the JAX package's format (flax msgpack by the port's
+    encoder, sidecar, hparams.yaml) under `root`, written once: phases 3q
+    and 3x read it."""
+    import numpy as np
+
+    from peppa_tpu_torch.models.convert import export_jax_variables
+    from peppa_tpu_torch.training.flax_msgpack import write_checkpoint
+
+    vdir = os.path.join(root, "msgpack_run", "version_0")
+    path = os.path.join(vdir, "checkpoints",
+                        "epoch=0-valnarr_triplet=0.50.ckpt")
+    if os.path.exists(path + ".json"):
+        return vdir
+    os.makedirs(os.path.dirname(path))
+    cfg.dump(os.path.join(vdir, "hparams.yaml"))
+    write_checkpoint(path, {"step": np.asarray(0, np.int32),
+                            **export_jax_variables(model), "opt_state": {}})
+    with open(path + ".json", "w") as f:
+        json.dump(dict(RUN_META, best_model_path=path), f)
+    return vdir
+
+
 def run_slice_int8(report: dict, card: str, root: str) -> None:
     """W8A8 serving of phase 3's configuration and seeded weights: the run
     directory served by `EncoderService.from_checkpoint(...,
@@ -1079,33 +1121,20 @@ def run_slice_int8(report: dict, card: str, root: str) -> None:
     first inputs of each weight shape; the embeddings against the bf16
     float path's; encode and audio-tower times beside bf16's (in turns);
     the profile split; a float32 int8 pair card vs CPU."""
-    import json
-
     import numpy as np
     import torch
 
     from peppa_tpu_torch.config import default_config
-    from peppa_tpu_torch.models.convert import export_jax_variables
     from peppa_tpu_torch.models.dual_encoder import init_model
     from peppa_tpu_torch.serving import EncoderService
-    from peppa_tpu_torch.training.flax_msgpack import write_checkpoint
     from peppa_tpu_torch.training.step import eval_step
     from peppa_tpu_torch.utils.request_batching import group_by_bucket
 
     cfg = default_config()  # bf16, full width; the flag comes at serving
     model = init_model(cfg, seed=0)  # phase 3's weights
-    vdir = os.path.join(root, "int8_run", "version_0")
-    path = os.path.join(vdir, "checkpoints",
-                        "epoch=0-valnarr_triplet=0.50.ckpt")
-    os.makedirs(os.path.dirname(path))
-    cfg.dump(os.path.join(vdir, "hparams.yaml"))
-    write_checkpoint(path, {"step": np.asarray(0, np.int32),
-                            **export_jax_variables(model), "opt_state": {}})
-    with open(path + ".json", "w") as f:
-        json.dump(dict(RUN_META, best_model_path=path), f)
+    vdir = _msgpack_run(model, cfg, root)
     svc = EncoderService.from_checkpoint(vdir, quantize_int8=True,
                                          batch_size=32)
-    shutil.rmtree(os.path.dirname(vdir))
     if not (svc.config.tpu.quantize_int8
             and svc.model.video_encoder.trunk.stem_spatial.quant):
         raise AssertionError("from_checkpoint(quantize_int8=True) built a "
@@ -1213,6 +1242,375 @@ def run_slice_int8(report: dict, card: str, root: str) -> None:
     rec["f32_card_vs_cpu"] = _int8_f32_card_vs_cpu()
     report["launches"]["serve_int8"] = launches
     report["serve_int8"] = rec
+
+
+# ----------------------------------------------------------------- phase 3x
+EXPORT_INT8_BUCKET = 2.3  # the W8A8 programs' one bucket (3q's timed one)
+ATTN_OP = "peppa_tpu_torch.mha_attention.default"
+INT_MM_OP = "aten._int_mm.default"
+EXAMPLE_SECONDS = (1.0, 2.0, 3.1)  # the example's 44.1 kHz WAV files
+
+
+def _spawn(cmd, jobs: list):
+    """Start one command from the checkout's root, its output captured;
+    it joins `jobs`, which the caller kills in the end if need be."""
+    job = (subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True),
+           time.perf_counter())
+    jobs.append(job)
+    return job
+
+
+def _wait(job, what: str, timeout: int = 600) -> str:
+    """A started command's standard output, or raise with the end of its
+    errors."""
+    proc, t0 = job
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+    print(f"{what}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def serve_artifacts(args) -> int:
+    """Phase 3x's loading process (`chip_smoke.py --serve_artifacts
+    ARTIFACT REQUESTS OUT ...`), with JAX blocked: each artifact loaded
+    by `ExportedEncoders` on the card (seconds, and the peak memory of
+    loading and serving it) and served its requests (a .npz of `audio_NNN`
+    and `video_NNN`), the embeddings written to OUT; the program calls,
+    kernel 1's launches and the plain version's calls on the card while
+    serving; kernel 1 held against its plain version on the path's first
+    input, and the host time to issue it through the custom op and
+    straight to its launch; the modules imported so far.  Then the model code, for encode
+    pairs/s at B=32 on 2.3 s: the first artifact's programs and phase 3's
+    live model in turns, on phase 3's batch.  Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    for blocked in ("jax", "flax", "msgpack"):
+        sys.modules[blocked] = None  # any import of these now fails
+    sys.path.insert(0, HERE)
+    from peppa_tpu_torch.export import ExportedEncoders
+    from peppa_tpu_torch.ops.cuda import attention
+
+    plain, kept = {"plain": 0}, []
+
+    def keep_first(real):
+        def run(*a, **kw):
+            if not kept:
+                kept.append(a)
+            return real(*a, **kw)
+        return run
+
+    undos = [_patch(attention, "mha_attention_plain", _count_on_card(plain)),
+             _patch(attention, "_launch", keep_first)]
+    report, encoders = {"artifacts": []}, []
+    for artifact, requests, emb_path in zip(args[0::3], args[1::3],
+                                            args[2::3]):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        enc = ExportedEncoders(artifact)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        encoders.append(enc)
+        calls = {"audio": 0, "video": 0}
+
+        def counted(real):
+            def run(kind, batch):
+                calls[kind] += 1
+                return real(kind, batch)
+            return run
+
+        enc.encode = counted(enc.encode)
+        with np.load(requests) as z:
+            items = {kind: [z[k] for k in sorted(z.files)
+                            if k.startswith(kind)]
+                     for kind in ("audio", "video")}
+        attention.mha_attention.launches = 0
+        a = enc.embed_audio(items["audio"])
+        v = enc.embed_video(items["video"])
+        torch.cuda.synchronize()
+        report["artifacts"].append({
+            "artifact": os.path.basename(artifact), "load_s": load_s,
+            "peak_memory_gib": (torch.cuda.max_memory_allocated() - base)
+            / 2**30, "calls": dict(calls),
+            "attention_fwd": attention.mha_attention.launches})
+        np.savez(emb_path, audio=a, video=v)
+    for undo in undos:
+        undo()
+    q, k, v, lengths, scale = kept[0][:5]
+    got = attention._launch(q, k, v, lengths, scale)[0]
+    want = attention.mha_attention_plain(q, k, v, lengths, scale)
+    report["held"] = {"shape": list(q.shape), "dtype": str(q.dtype),
+                      "lengths": lengths is not None,
+                      "max_abs_err": (got.float() - want.float())
+                      .abs().max().item()}
+    # host time to issue one call through the custom op and one straight
+    # to the launch (100 each, no synchronise: the queue does not fill)
+    issue = {}
+    for tag, fn in (("op", lambda: attention.attention_op(q, k, v, lengths,
+                                                           scale)),
+                    ("launch", lambda: attention._launch(q, k, v, lengths,
+                                                         scale))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        issue[tag] = (time.perf_counter() - t0) * 1e4  # us per call
+        torch.cuda.synchronize()
+    report["issue_us"] = issue
+    report["plain_on_card"] = plain["plain"]
+    report["imported"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None
+        and m.startswith(("peppa_tpu_torch.models", "peppa_tpu_torch.training",
+                          "peppa_tpu.", "jax", "flax")))
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.models.dual_encoder import init_model
+
+    cfg = default_config()
+    rng = np.random.default_rng(0)
+    _requests(rng, cfg, 40)
+    batch = _clip_batch(rng, cfg, 32, 2.3)  # phase 3's timing batch
+    model = init_model(cfg, seed=0)
+    audio = torch.from_numpy(batch.audio).cuda()
+    video = torch.from_numpy(batch.video).cuda()
+    enc = encoders[0]
+    fns = {"artifact": lambda: (enc.encode("audio", audio),
+                                enc.encode("video", video)),
+           "live": lambda: (model.encode_audio(audio),
+                            model.encode_video(video))}
+    times = {tag: [] for tag in fns}
+    with torch.inference_mode():
+        for _ in range(6):  # phase 3's clock and statistic, in turns
+            for tag, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[tag].append(time.perf_counter() - t0)
+    report["encode_pairs_per_s"] = {
+        tag: 32 / float(np.median(t[1:])) for tag, t in times.items()}
+    print(json.dumps(report))
+    return 0
+
+
+def _programs(path: str, tower: str) -> list:
+    """Each program of an artifact: export seconds, bytes and the op
+    nodes that phase 3x checks."""
+    from peppa_tpu_torch.export import op_counts
+
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    out = []
+    for prog in manifest["programs"]:
+        f = os.path.join(path, prog["file"])
+        counts = op_counts(f)
+        out.append({"tower": tower, "kind": prog["kind"],
+                    "file": prog["file"], "export_s": prog["export_s"],
+                    "bytes": os.path.getsize(f),
+                    "attention_op": counts.get(ATTN_OP, 0),
+                    "int_mm": counts.get(INT_MM_OP, 0),
+                    "einsum": sum(n for name, n in counts.items()
+                                  if "einsum" in name)})
+    return out
+
+
+def _write_wavs(wav_dir: str) -> str:
+    """EXAMPLE_SECONDS of seeded noise as 16-bit 44.1 kHz WAV files; their
+    glob."""
+    import wave
+
+    import numpy as np
+
+    os.makedirs(wav_dir)
+    rng = np.random.default_rng(5)
+    for i, seconds in enumerate(EXAMPLE_SECONDS):
+        pcm = (np.clip(rng.normal(scale=0.1, size=int(44100 * seconds)),
+                       -1, 1) * 32767).astype("<i2")
+        with wave.open(os.path.join(wav_dir, f"{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(44100)
+            w.writeframes(pcm.tobytes())
+    return os.path.join(wav_dir, "*.wav")
+
+
+def run_export(report: dict, card: str, root: str) -> None:
+    """The deployment path (module doc, phase 3x) on phase 3's
+    configuration and weights, from 3q's run directory: the export CLI
+    (every bucket, B=32, both towers) and, beside it, the example CLI and
+    the W8A8 towers' export at 2.3 s; the programs' op nodes, bytes and
+    export seconds; a second process that loads the artifacts with JAX
+    blocked and serves phase 3's requests (the W8A8 artifact those of the
+    2.3 s bucket), bit for bit against the live `EncoderService`s, with
+    kernel 1's launches per audio call and no plain version on the card;
+    kernel 1 against its plain version on the path's first input; the
+    artifacts' load seconds and peak memory; encode pairs/s, artifact and
+    live in turns."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.export import export_encoders
+    from peppa_tpu_torch.models.dual_encoder import PeppaPig, init_model
+    from peppa_tpu_torch.serving import EncoderService
+    from peppa_tpu_torch.utils.request_batching import group_by_bucket
+
+    t_phase = time.perf_counter()
+    cfg = default_config()  # bf16, full width and depth
+    model = init_model(cfg, seed=0)  # phase 3's weights
+    vdir = _msgpack_run(model, cfg, root)  # 3q's run directory
+    work = os.path.join(root, "export")
+    art, art_q = (os.path.join(work, name)
+                  for name in ("artifact", "artifact_int8"))
+    n_layers = model.audio_encoder.wav2vec2.cfg.num_layers
+    jobs = []
+    try:
+        # the two CLIs in their own processes, the int8 export here, at
+        # once (CPU-bound tracing and loading on the host's cores)
+        export_job = _spawn([sys.executable, "-m", "peppa_tpu_torch.export",
+                             vdir, art, "--platforms", "cuda"], jobs)
+        example_job = _spawn([sys.executable, "-m", "peppa_tpu_torch.example",
+                              "--version_dir", vdir, "--audio_glob",
+                              _write_wavs(os.path.join(work, "wavs"))], jobs)
+        cfg_q = default_config()
+        cfg_q.tpu.quantize_int8 = True
+        model_q = PeppaPig(cfg_q)
+        model_q.load_state_dict(model.state_dict())
+        model_q.eval().cuda()
+        t0 = time.perf_counter()
+        export_encoders(model_q, cfg_q, art_q, batch_size=32,
+                        buckets=[EXPORT_INT8_BUCKET])
+        print(f"int8 export (2 programs): {time.perf_counter() - t0:.1f} s")
+        _wait(export_job, "export CLI (4 buckets x 2 towers)")
+        out = _wait(example_job, "example CLI (beside them), ended within")
+        line = ("Audio embedding tensor with shape: "
+                f"({len(EXAMPLE_SECONDS)}, 512)")
+        if out.strip().splitlines()[-1] != line:
+            raise AssertionError(f"example printed {out[-500:]!r}")
+        example_s = time.perf_counter() - example_job[1]  # an upper bound
+
+        programs = _programs(art, "bf16") + _programs(art_q, "int8")
+        variables_bytes = os.path.getsize(os.path.join(art, "variables.pt"))
+        for p in programs:
+            print(f"  {p['tower']} {p['file']}: export {p['export_s']:.2f} "
+                  f"s, {p['bytes']} bytes, {p['attention_op']} attention "
+                  f"op, {p['int_mm']} _int_mm, {p['einsum']} einsum nodes")
+        # each artifact's programs against its own weights (the graphs
+        # keep their source lines' paths, so their bytes grow with the
+        # checkout's path)
+        share = {tower: sum(p["bytes"] for p in programs
+                            if p["tower"] == tower) / os.path.getsize(
+                                os.path.join(path, "variables.pt"))
+                 for tower, path in (("bf16", art), ("int8", art_q))}
+        print(f"variables.pt {variables_bytes} bytes; the programs' bytes "
+              f"a share of it: " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in share.items()))
+        for p in programs:
+            want = {"attention_op": n_layers if p["kind"] == "audio" else 0,
+                    "einsum": 0,
+                    "int_mm": 0 if p["tower"] == "bf16" else sum(
+                        (INT8_PER_AUDIO if p["kind"] == "audio"
+                         else INT8_PER_VIDEO).values())}
+            if {k: p[k] for k in want} != want:
+                raise AssertionError(f"program graph {p} != {want}")
+        if (len(programs) != 2 * len(cfg.tpu.bucket_durations) + 2
+                or max(share.values()) >= 0.05):
+            raise AssertionError(f"programs {programs}, weights "
+                                 f"{variables_bytes} bytes")
+
+        # phase 3's requests (its generator's first draws), served live
+        rng = np.random.default_rng(0)
+        waves, clips = _requests(rng, cfg, 40)
+        svc = EncoderService(model, cfg, batch_size=32)
+        svc_q = EncoderService(model_q, cfg_q, batch_size=32)
+        s23 = int(round(EXPORT_INT8_BUCKET * cfg.data.audio_sample_rate))
+        t23 = int(round(EXPORT_INT8_BUCKET * svc.fps))
+        sub = {"audio": [w for w in waves
+                         if svc._audio_bucket(len(w)) == s23],
+               "video": [c for c in clips
+                         if svc._video_bucket(len(c)) == t23]}
+        live = {"bf16": (svc.embed_audio(waves), svc.embed_video(clips)),
+                "int8": (svc_q.embed_audio(sub["audio"]),
+                         svc_q.embed_video(sub["video"]))}
+        groups = group_by_bucket(clips, lambda x: svc._video_bucket(len(x)))
+        want_calls = {"bf16": {"audio": _audio_batches(svc, waves),
+                               "video": sum(-(-len(i) // 32)
+                                            for i in groups.values())},
+                      "int8": {"audio": 1, "video": 1}}
+        del svc, svc_q, model, model_q
+        torch.cuda.empty_cache()
+        args = []
+        for tag, path, reqs in (("bf16", art, {"audio": waves,
+                                               "video": clips}),
+                                ("int8", art_q, sub)):
+            req = os.path.join(work, f"requests_{tag}.npz")
+            np.savez(req, **{f"{kind}_{i:03d}": x
+                             for kind, xs in reqs.items()
+                             for i, x in enumerate(xs)})
+            args += [path, req, os.path.join(work, f"emb_{tag}.npz")]
+        out = _wait(_spawn([sys.executable,
+                            os.path.join(HERE, "chip_smoke.py"),
+                            "--serve_artifacts", *args], jobs),
+                    "artifact serving (JAX blocked)")
+    finally:
+        for proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    served = json.loads(out.strip().splitlines()[-1])
+    print(json.dumps(served))
+    differ = []
+    for (tag, (a_live, v_live)), rec in zip(live.items(),
+                                            served["artifacts"]):
+        with np.load(os.path.join(work, f"emb_{tag}.npz")) as z:
+            a, v = z["audio"], z["video"]
+        rec["bit_for_bit"] = bool(np.array_equal(a, a_live)
+                                  and np.array_equal(v, v_live))
+        rec["max_abs_vs_live"] = max(float(np.abs(a - a_live).max()),
+                                     float(np.abs(v - v_live).max()))
+        print(f"{tag} artifact vs live EncoderService: bit for bit "
+              f"{rec['bit_for_bit']} (max|d| {rec['max_abs_vs_live']:.3g}); "
+              f"calls {rec['calls']}, kernel 1 launches "
+              f"{rec['attention_fwd']}, load {rec['load_s']:.2f} s, peak "
+              f"memory {rec['peak_memory_gib']:.2f} GiB")
+        if not rec["bit_for_bit"]:
+            differ.append(tag)
+        if (rec["calls"] != want_calls[tag] or rec["attention_fwd"]
+                != n_layers * rec["calls"]["audio"]):
+            raise AssertionError(f"{tag} artifact: {rec}, calls "
+                                 f"{want_calls[tag]}")
+    held = served["held"]
+    print(f"kernel 1 on the artifact path's first input {held}: max|d| "
+          f"{held['max_abs_err']:.3g} (tol {TOL_ATTN['bfloat16']}); host "
+          f"issue per call through the custom op "
+          f"{served['issue_us']['op']:.1f} us, straight to the launch "
+          f"{served['issue_us']['launch']:.1f} us")
+    if (served["plain_on_card"] or served["imported"] or differ
+            or not held["max_abs_err"] <= TOL_ATTN["bfloat16"]):
+        raise AssertionError(f"artifact serving: plain on card "
+                             f"{served['plain_on_card']}, imported "
+                             f"{served['imported']}, differ {differ}, held "
+                             f"{held}")
+    rate = served["encode_pairs_per_s"]
+    phase3 = report.get("encode_pairs_per_s")
+    print(f"encode at B=32, 2.3 s, in turns: artifact {rate['artifact']:.1f}"
+          f" pairs/s, live {rate['live']:.1f}"
+          + (f" (phase 3 {phase3:.1f})" if phase3 else "") + f" ({card})")
+    shutil.rmtree(work)
+    report["launches"]["export"] = {
+        "attention_fwd": sum(r["attention_fwd"] for r in served["artifacts"]),
+        "attention_bwd": 0, "triplet_loss": 0}
+    report["export"] = {
+        "programs": programs, "variables_bytes": variables_bytes,
+        "program_share": share,
+        "serving": served, "example_s": example_s,
+        "phase_s": time.perf_counter() - t_phase}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -3711,7 +4109,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
-                        choices=("2", "3", "3q", "4a", "4b", "4e", "4c",
+                        choices=("2", "3", "3q", "3x", "4a", "4b", "4e", "4c",
                                  "4d", "6", "7", "8", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
@@ -3741,6 +4139,7 @@ def main() -> int:
                              check_loss(report))),
               ("3", lambda: run_slice(report, card)),
               ("3q", lambda: run_slice_int8(report, card, root)),
+              ("3x", lambda: run_export(report, card, root)),
               ("4a", lambda: run_training(report, card, "deterministic")),
               ("4b", lambda: run_training(report, card, "default")),
               ("4e", lambda: run_training(report, card, "f32")),
@@ -3772,7 +4171,7 @@ def main() -> int:
         print(json.dumps({k: v for k, v in report.items()
                           if k in ("launches", "evaluation", "results",
                                    "prep", "attention", "attention_bwd",
-                                   "serve_int8",
+                                   "serve_int8", "export",
                                    *TRAIN_TAGS.values())},
                          default=str))
         print(card)
@@ -3805,6 +4204,7 @@ def main() -> int:
                       "batch": 32, "bucket_s": 2.3,
                       "audio_tower_ms_6s": report["audio_tower_ms_6s"],
                       "serve_int8": report["serve_int8"],
+                      "export": report["export"],
                       **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
                       "trainer": report["trainer"],
@@ -3821,4 +4221,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve_artifacts"]:  # phase 3x's second process
+        sys.exit(serve_artifacts(sys.argv[2:]))
     sys.exit(main())

@@ -40,9 +40,16 @@ two blocks fit on an SM.
 the same layout in q's dtype.  When autograd needs its gradient it runs as a
 `torch.autograd.Function` whose forward also keeps the log-sum-exp and the
 output, and whose backward is the backward kernel; otherwise (serving,
-`inference_mode`) it is the forward kernel alone.  On CPU tensors both
-directions run the plain versions; on CUDA tensors they launch the kernels
-or raise.
+`inference_mode`) it is the forward kernel alone, through the custom op
+`torch.ops.peppa_tpu_torch.mha_attention` (q, k, v, lengths, scale): its
+CPU kernel is the plain version, its CUDA kernel the forward kernel, and
+its fake version gives the output's shape and strides, so that
+`torch.export` keeps one opaque node per call that dispatches by device
+when the program runs (`peppa_tpu_torch/export.py`).  Importing this
+module registers the op (`torch.library`); it imports only torch and
+ctypes.  On CPU
+tensors both directions run the plain versions; on CUDA tensors they
+launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -310,6 +317,36 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# The attention forward as one dispatcher op, without a gradient: the plain
+# version on CPU tensors, the forward kernel on CUDA tensors, and a fake
+# version for tracing.  Registered through `torch.library.Library`, whose
+# kernels the dispatcher calls as they are: `torch.library.custom_op` wraps
+# each kernel so that its first call imports `torch._dynamo`, seconds of
+# every process's first request.
+_LIBRARY = torch.library.Library("peppa_tpu_torch", "DEF")
+_LIBRARY.define("mha_attention(Tensor q, Tensor k, Tensor v, Tensor? lengths, "
+                "float scale) -> Tensor")
+
+
+def _attention_op_cpu(q, k, v, lengths, scale):
+    return mha_attention_plain(q, k, v, lengths, scale).contiguous()
+
+
+def _attention_op_cuda(q, k, v, lengths, scale):
+    return _launch(q, k, v, lengths, scale)[0]
+
+
+def _attention_op_fake(q, k, v, lengths, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+_LIBRARY.impl("mha_attention", _attention_op_cpu, "CPU")
+_LIBRARY.impl("mha_attention", _attention_op_cuda, "CUDA")
+torch.library.register_fake("peppa_tpu_torch::mha_attention",
+                            _attention_op_fake, lib=_LIBRARY)
+attention_op = torch.ops.peppa_tpu_torch.mha_attention.default
+
+
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lengths: Optional[torch.Tensor] = None,
                   scale: Optional[float] = None) -> torch.Tensor:
@@ -317,16 +354,14 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     `lengths` (B,) marks the valid keys of each example (>= 1; None: all
     T).  CPU tensors: the plain versions; CUDA tensors: the kernels.
-    Differentiable in q, k and v.
+    Differentiable in q, k and v; without a gradient it is `attention_op`.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    device = _device_of(q)
+    _device_of(q)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _Attention.apply(q, k, v, lengths, scale)
-    if device == "cpu":
-        return mha_attention_plain(q, k, v, lengths, scale)
-    return _launch(q, k, v, lengths, scale)[0]
+    return attention_op(q, k, v, lengths, float(scale))
 
 
 mha_attention.launches = 0  # forward kernel launches (CPU calls do not count)

@@ -972,3 +972,60 @@ def test_float32_convolutions_run_without_tf32(cuda):
     want = torch.nn.functional.conv1d(x.double(), w.double(), stride=2)
     err = ((got.cpu().double() - want).abs().max() / want.abs().max()).item()
     assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "w8a8"])
+def test_exported_artifact_runs_the_kernel_on_the_card(cuda, monkeypatch,
+                                                       tmp_path, quant):
+    """A small artifact exported on the card (bf16, 2 layers): one
+    attention-op node per layer in each audio program (and the int8
+    products as `_int_mm` nodes), 2 kernel launches per audio program
+    call, no plain version on the card, and the live EncoderService's
+    embeddings bit for bit."""
+    import os
+
+    import numpy as np
+
+    from peppa_tpu_torch.config import Config
+    from peppa_tpu_torch.export import (ExportedEncoders, export_encoders,
+                                        op_counts)
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import attention as attention_module
+    from peppa_tpu_torch.serving import EncoderService
+
+    cfg = Config.from_dict({
+        "data": {"target_size": [64, 48], "audio_sample_rate": 16000},
+        "audio": {"num_layers": 2},
+        "tpu": {"bucket_durations": [0.5, 1.0], "quantize_int8": quant}})
+    model = init_model(cfg, seed=0)
+    manifest = export_encoders(model, cfg, str(tmp_path), batch_size=4)
+    assert manifest["platforms"] == ["cuda"]
+    for prog in manifest["programs"]:
+        counts = op_counts(os.path.join(tmp_path, prog["file"]))
+        audio = prog["kind"] == "audio"
+        assert counts.get("peppa_tpu_torch.mha_attention.default", 0) == \
+            (2 if audio else 0), counts
+        assert not any("einsum" in k for k in counts), counts
+        assert counts.get("aten._int_mm.default", 0) == (
+            0 if not quant else 6 + 1 + 6 * 2 if audio else 37), counts
+
+    def refuse(*args, **kw):
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            raise AssertionError("the plain attention ran on the card")
+        return real(*args, **kw)
+
+    real = attention_module.mha_attention_plain
+    monkeypatch.setattr(attention_module, "mha_attention_plain", refuse)
+    enc = ExportedEncoders(str(tmp_path))
+    rng = np.random.default_rng(0)
+    waves = [rng.normal(scale=0.1, size=s).astype(np.float32)
+             for s in (8000, 3000, 16000, 12000, 20000, 500)]
+    clips = [rng.integers(0, 256, size=(t, 48, 64, 3), dtype=np.uint8)
+             for t in (5, 3, 10, 7)]
+    mha_attention.launches = 0
+    a = enc.embed_audio(waves)
+    assert mha_attention.launches == 2 * 2  # one call per bucket
+    v = enc.embed_video(clips)
+    svc = EncoderService(model, cfg, batch_size=4)
+    assert np.array_equal(a, svc.embed_audio(waves))
+    assert np.array_equal(v, svc.embed_video(clips))

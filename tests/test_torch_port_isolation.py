@@ -106,6 +106,47 @@ def test_evaluation_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             call()
 
 
+_DEPLOY_PROBE = r"""
+import sys
+for blocked in ("jax", "flax", "msgpack"):
+    sys.modules[blocked] = None  # any import of these now fails
+import peppa_tpu_torch.example, peppa_tpu_torch.export  # noqa: E401, F401
+print(sorted(m for m in sys.modules
+             if m == "peppa_tpu" or m.startswith("peppa_tpu.")))
+"""
+
+
+def test_deployment_modules_import_no_jax():
+    """`export.py` and `example.py` import nothing of JAX or of the JAX
+    package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _DEPLOY_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_deployment_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The artifact loader, the export CLI unless it is asked for the CPU
+    alone, and the example default to the card and raise without it,
+    before they read anything."""
+    from peppa_tpu_torch import example, export
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    runs = str(tmp_path / "runs")
+    for call in (lambda: export.ExportedEncoders(str(tmp_path)),
+                 lambda: export.main([runs, str(tmp_path / "out")]),
+                 lambda: export.main([runs, str(tmp_path / "out"),
+                                      "--platforms", "cuda", "cpu"]),
+                 lambda: export.main([runs, "--reference_ckpt",
+                                      str(tmp_path / "ref.ckpt")]),
+                 lambda: example.main(runs, str(tmp_path / "*.wav"))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert os.listdir(tmp_path) == []
+
+
 RESULTS_ENTRY_POINTS = {
     "duration_effect": lambda ev, g, d, kw: ev.duration_effect(d),
     "duration_effect_scramble":
