@@ -81,6 +81,24 @@ Phases:
      that backward's inputs: with the path's dO (within 1e-4 of the
      largest |plain| gradient, each beside the plain version's error
      against float64) and with a unit-scale dO;
+ 4p. data-parallel training over `torch.distributed`: (a) 4a's
+     configuration and batches with k = 2 for 4 micro-steps, in this
+     process alone and then through the distributed code path over NCCL
+     at world size 1 (`init_distributed`, `make_mesh`, the gradient
+     all-reduce): the same losses and state bit for bit, and the losses
+     4a's first four; (b) two rank processes sharing the card over gloo
+     on CUDA tensors (NCCL refuses two ranks on one device), float32,
+     `audio.dropout: 0.0`, full width and depth, micro-batch 4 of 2.3 s
+     a rank, k = 2, 4 micro-steps: kernels 1 and 2 12 times a micro-step
+     on each rank, kernel 3 none (the global-negative loss), no plain
+     version on the card; rank 0 holds kernel 1's float32 route (3 key
+     splits at B=4) and kernel 2's on the first inputs its two-rank run
+     gave them, as 4e does, and then takes the same steps in one process
+     on the 8-row global batches: the losses within rtol 1e-4, the
+     gradient handed to BertAdam and the parameters after each optimizer
+     step at phase 5's tolerances, the running statistics; each rank's ms
+     per micro-step and peak memory (two ranks on one card measure
+     correctness and overhead, not scaling);
  4c. `Trainer.fit` of the same configuration (the defaults: dropout,
      layer-drop) on `SyntheticPigData` (128 training clips, 100 in each of
      the four validation sets): sanity validation of 2 batches a loader,
@@ -174,7 +192,8 @@ phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 7 brings phase 6), and the summary is their records.
 
 Launch counts are set to 0 just before each main path (3, 3q, 3x's artifact
-serving in its own process, 4a, 4b, 4e, the
+serving in its own process, 4a, 4b, 4e, 4p's world-size-1 run and each
+rank's two-rank run (the ranks report theirs), the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
 the battery, the targeted path and the towers of 6, each model step of
 7, the realign and the targeted path of 8) and read just after it.
@@ -1655,19 +1674,7 @@ def run_training(report: dict, card: str, mode: str) -> None:
     stats0 = {n: b.clone() for n, b in model.named_buffers()
               if n.endswith(("running_mean", "running_var"))}
     kept = {}  # the float32 forward's and backward's first inputs here
-
-    def keep_first(name):
-        def wrap(real):
-            def run(*args, **kw):
-                if name not in kept:
-                    kept[name] = [a.detach().clone()
-                                  if isinstance(a, torch.Tensor) else a
-                                  for a in args]
-                return real(*args, **kw)
-            return run
-        return wrap
-
-    undos = ([_patch(attention, name, keep_first(name))
+    undos = ([_patch(attention, name, _keep_first(kept, name))
               for name in ("_launch", "_launch_bwd")] if mode == "f32"
              else [])
     torch.cuda.synchronize()
@@ -1755,6 +1762,22 @@ def run_training(report: dict, card: str, mode: str) -> None:
         if again != losses[:2]:
             raise AssertionError(f"{tag} is not reproducible: {again}")
     del state, model
+
+
+def _keep_first(kept: dict, name: str):
+    """A `_patch` wrapper that keeps the arguments of the first call in
+    kept[name], tensors cloned."""
+    import torch
+
+    def wrap(real):
+        def run(*args, **kw):
+            if name not in kept:
+                kept[name] = [a.detach().clone()
+                              if isinstance(a, torch.Tensor) else a
+                              for a in args]
+            return real(*args, **kw)
+        return run
+    return wrap
 
 
 def _fwd_f32_error(q, k, v, lengths, scale, out, lse, what: str) -> float:
@@ -1869,6 +1892,380 @@ def _hold_bwd_f32(args: list, tag: str) -> dict:
             "max_abs_plain": largest, "against_f64": against_f64,
             "max_abs_err_unit_do": unit_err,
             "saved_output_max_abs_err": fwd_err}
+
+
+# ----------------------------------------------------------------- phase 4p
+DP_RANKS, DP_B, DP_K, DP_MICRO_STEPS = 2, 4, 2, 4  # per rank; k; steps
+DP_TIMEOUT = 600  # seconds for the two ranks' processes
+DP_LAYERS = 12  # wav2vec2-base's: kernels 1 and 2 once per layer a step
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_config(precision: str):
+    """4a's configuration (`audio.dropout: 0.0`: kernels 1 and 2 both ways)
+    in `precision`, with k = DP_K: the second micro-step takes an optimizer
+    step (lr 0 under warmup_linear), the fourth one that moves."""
+    from peppa_tpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg.audio.dropout = 0.0
+    cfg.training.precision = precision
+    cfg.training.accumulate_grad_batches = DP_K
+    return cfg
+
+
+def _dp_world_one(report: dict, card: str) -> None:
+    """Phase 4p (a): 4a's configuration and batches (k = DP_K) for
+    DP_MICRO_STEPS micro-steps in one process, then through the
+    distributed code path over NCCL at world size 1 in this process
+    (`init_distributed`, `make_mesh`, the gradient all-reduce): the same
+    losses and the same state bit for bit, and the losses 4a's.  Both
+    runs take cuDNN's deterministic algorithms: its default weight
+    gradients add with atomics, so two runs of one process differ in the
+    last bits of conv0's gradient."""
+    import numpy as np
+    import torch
+    import torch.distributed as td
+
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.parallel.mesh import make_mesh
+    from peppa_tpu_torch.training.checkpoint import snapshot
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+    from peppa_tpu_torch.utils.dist import init_distributed
+
+    cfg = _dp_config("bf16")
+    rng = np.random.default_rng(2)  # 4a's batches, in 4a's order
+    batches = [_clip_batch(rng, cfg, TRAIN_B, TRAIN_SECONDS)
+               for _ in range(DP_MICRO_STEPS)]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("one process", "NCCL"):
+            mesh = None
+            if name == "NCCL":
+                os.environ.update(env)
+                init_distributed()
+                mesh = make_mesh()
+                if td.get_backend() != "nccl" or mesh.group is None:
+                    raise AssertionError(f"4p: backend {td.get_backend()}")
+            model = init_model(cfg, seed=0)
+            state = TrainState.create(model, cfg, mesh)
+            _reset_counts()
+            t0 = time.perf_counter()
+            losses = [train_step(state, b, seed=0)[1]["train_loss"]
+                      for b in batches]
+            torch.cuda.synchronize()
+            runs[name] = {"losses": [x.item() for x in losses],
+                          "launches": _counts(),
+                          "s": time.perf_counter() - t0}
+            if name == "one process":
+                kept = snapshot(state)
+            else:
+                runs[name]["tensors_equal"] = _same_state(
+                    kept, state.state_dict())
+            del state, model
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if td.is_initialized():
+            td.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    one, nccl = runs["one process"], runs["NCCL"]
+    want = {"attention_fwd": DP_LAYERS * DP_MICRO_STEPS,
+            "attention_bwd": DP_LAYERS * DP_MICRO_STEPS,
+            "triplet_loss": DP_MICRO_STEPS}
+    print(f"4p (a): {DP_MICRO_STEPS} micro-steps of 4a's configuration "
+          f"(k={DP_K}) in one process and over NCCL at world size 1: "
+          f"losses {nccl['losses']}; launches {nccl['launches']}; "
+          f"{nccl['tensors_equal']} state tensors (parameters, statistics, "
+          f"moments, buffers) equal bit for bit; {one['s']:.1f} / "
+          f"{nccl['s']:.1f} s")
+    if nccl["losses"] != one["losses"] or nccl["launches"] != want \
+            or one["launches"] != want:
+        raise AssertionError(f"4p (a): {runs}")
+    ref = report.get("train_deterministic")
+    if ref is not None:
+        if nccl["losses"] != ref["losses"][:DP_MICRO_STEPS]:
+            raise AssertionError(f"4p (a): losses {nccl['losses']} are not "
+                                 f"4a's {ref['losses'][:DP_MICRO_STEPS]}")
+        print("4p (a): the losses equal 4a's first "
+              f"{DP_MICRO_STEPS} bit for bit")
+    report["launches"]["train_dp_w1"] = nccl["launches"]
+    report["train_dp"].update(w1_losses=nccl["losses"],
+                              w1_tensors_equal=nccl["tensors_equal"],
+                              w1_equals_4a=ref is not None)
+
+
+def _dp_hold(got: dict, want: dict, start=None) -> dict:
+    """The worst share of its tolerance each tower uses (<= 1 passes), as
+    phase 5 holds gradients: the audio tensors' max|d| against 1e-3 of the
+    tensor's largest entry, the video tensors' |d| against 10% of the
+    norm.  With `start`, parameters: the audio tolerance plus 1e-3 lr (the
+    attention pools' biases start at 0 with gradients near rounding level,
+    where BertAdam's update is proportional to the gradient), and the video
+    tower's updates as one vector (BertAdam's first updates are about
+    lr * 3.2 * sign(g): one sign flipped by rounding in a tensor of a few
+    dozen BatchNorm scales is a third of its update's norm)."""
+    lr = 1e-4  # hparams_base.yaml's
+    worst = {"audio": (0.0, ""), "video": (0.0, "")}
+    video_d2 = video_u2 = 0.0
+    for name, w in want.items():
+        d = got[name].float() - w.float()
+        if name.startswith("video_encoder."):
+            if start is not None:
+                video_d2 += float(d.square().sum())
+                video_u2 += float((w.float() - start[name].float())
+                                  .square().sum())
+                continue
+            used = (d.norm() / (0.1 * w.float().norm() + 1e-8)).item()
+            worst["video"] = max(worst["video"], (used, name))
+        else:
+            floor = 1e-3 * lr if start is not None else 1e-8
+            used = (d.abs().max() / (1e-3 * w.abs().max() + floor)).item()
+            worst["audio"] = max(worst["audio"], (used, name))
+    if start is not None:
+        worst["video"] = (video_d2 ** 0.5 / (0.1 * video_u2 ** 0.5 + 1e-8),
+                          "the tower")
+    return worst
+
+
+def dp_rank(argv) -> int:
+    """A rank of phase 4p (b), in a process of its own: `chip_smoke.py
+    --dp_rank RANK PORT DIR`.  Both ranks share card 0 over gloo on CUDA
+    tensors (NCCL refuses two ranks on one device).  Each trains
+    DP_MICRO_STEPS float32 micro-steps of DP_B 2.3 s clips, its slab of
+    global batches of DP_RANKS * DP_B; rank 0 then holds kernels 1 and 2
+    against their plain versions on the first inputs its two-rank run gave
+    them (float32 at B = DP_B: 3 key splits, a plan no other phase runs at
+    T = 316), takes the same steps in one process on the global batches
+    and holds the two runs against each other.  Writes
+    DIR/rank_RANK.json."""
+    rank, port, out_dir = argv
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=rank, WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as td
+
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+    from peppa_tpu_torch.utils.dist import init_distributed
+
+    init_distributed("cuda:0", backend="gloo")
+    mesh = make_mesh()
+    cfg = _dp_config("fp32")
+    rng = np.random.default_rng(5)
+    global_batches = [_clip_batch(rng, cfg, DP_RANKS * DP_B, TRAIN_SECONDS)
+                      for _ in range(DP_MICRO_STEPS)]
+    record = {"plain": 0}
+    modules = {"attention": attention, "loss": loss}
+    undo = [_patch(modules[m], name, _count_on_card(record))
+            for m, name in PLAIN_VERSIONS]
+
+    def train(batches, mesh):
+        """The micro-steps from the seeded init: losses, host-clock and
+        CUDA-event ms, the gradient handed to BertAdam and the parameters
+        after each optimizer step, the running statistics at the end."""
+        model = init_model(cfg, seed=0)
+        state = TrainState.create(model, cfg, mesh)
+        taken = []
+        real_step = state.optimizer.step
+
+        def step():  # the reduced mean, then the update
+            grads = {n: p.grad.detach().clone()
+                     for n, p in state.params.items()}
+            real_step()
+            taken.append((grads, {n: p.detach().clone()
+                                  for n, p in state.params.items()}))
+
+        state.optimizer.step = step
+        out = {"start": {n: p.detach().clone()
+                         for n, p in state.params.items()}}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        losses, events = [], []
+        for i, batch in enumerate(batches):
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+            state, m = train_step(state, batch, seed=0)
+            events[-1][1].record()
+            losses.append(m["train_loss"])
+            if i == 0:  # micro-step 1 warms up; time the others
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out.update(
+            ms=(time.perf_counter() - t1) / (len(batches) - 1) * 1e3,
+            event_ms=[a.elapsed_time(b) for a, b in events[1:]],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=_counts(), losses=[x.item() for x in losses],
+            taken=taken, stats={n: b.clone() for n, b in
+                                model.named_buffers() if "running_" in n})
+        h = hashlib.sha256()
+        for t in model.state_dict().values():
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        out["digest"] = h.hexdigest()
+        return out
+
+    kept = {}  # rank 0's first float32 forward and backward inputs
+    try:
+        keep = ([_patch(attention, name, _keep_first(kept, name))
+                 for name in ("_launch", "_launch_bwd")]
+                if mesh.rank == 0 else [])
+        try:
+            two = train([shard_batch(b, mesh) for b in global_batches], mesh)
+        finally:
+            for u in keep:
+                u()
+        result = {k: two[k] for k in ("ms", "event_ms", "peak_gib",
+                                      "launches", "losses", "digest")}
+        result["plain"] = record["plain"]
+        if mesh.rank == 0:
+            tag = "4p (b) rank 0"
+            result["attention_held"] = _hold_fwd_f32(kept["_launch"], tag)
+            result["attention_bwd_held"] = _hold_bwd_f32(
+                kept["_launch_bwd"], tag)
+            one = train(global_batches, None)
+            result["one_losses"] = one["losses"]
+            result["one_ms"] = one["ms"]
+            result["one_launches"] = one["launches"]
+            held = {}
+            for i, ((g2, p2), (g1, p1)) in enumerate(zip(two["taken"],
+                                                         one["taken"])):
+                held[f"grads_{i + 1}"] = _dp_hold(g2, g1)
+                held[f"params_{i + 1}"] = _dp_hold(p2, p1, one["start"])
+            stats = max(((two["stats"][n] - w).abs().max()
+                         / (1e-3 * w.abs().max() + 1e-6)).item()
+                        for n, w in one["stats"].items())
+            held["running_stats"] = stats
+            result["held"] = held
+            # the first optimizer step's learning rate is 0
+            first2, first1 = two["taken"][0][1], one["taken"][0][1]
+            result["steps_equal_before_the_update"] = all(
+                torch.equal(first2[n], first1[n]) for n in first1)
+    finally:
+        for u in undo:
+            u()
+        td.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _dp_two_ranks(report: dict, card: str) -> None:
+    """Phase 4p (b): two rank processes (`dp_rank`) sharing the card;
+    their results held and summed."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp_rank", str(r),
+         port, out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(DP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"4p rank {r} exited {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    summed = {k: sum(r["launches"][k] for r in ranks)
+              for k in r0["launches"]}
+    per_rank = {"attention_fwd": DP_LAYERS * DP_MICRO_STEPS,
+                "attention_bwd": DP_LAYERS * DP_MICRO_STEPS,
+                "triplet_loss": 0}
+    for r, res in enumerate(ranks):
+        print(f"4p (b) rank {r}: launches {res['launches']}, plain calls on "
+              f"the card {res['plain']}; {res['ms']:.2f} ms per micro-step "
+              f"(host clock, micro-steps 2-{DP_MICRO_STEPS}; CUDA events "
+              f"{[round(x, 2) for x in res['event_ms']]}), peak "
+              f"{res['peak_gib']:.2f} GiB: two ranks sharing one card "
+              f"measure correctness and overhead, not scaling ({card})")
+    fwd, bwd = r0["attention_held"], r0["attention_bwd_held"]
+    print(f"4p (b) rank 0: kernel 1 float32 at {fwd['shape']} ("
+          f"{fwd['key_splits']} key splits) max|d| {fwd['max_abs_err']:.3g} "
+          f"against plain; kernel 2 float32 max|d| {bwd['max_abs_err']:.3g} "
+          f"with the path's dO (max|plain| {bwd['max_abs_plain']:.3g}), "
+          f"{bwd['max_abs_err_unit_do']:.3g} with a unit-scale dO")
+    held = r0["held"]
+    print(f"4p (b): {DP_RANKS} ranks x B={DP_B} of {TRAIN_SECONDS} s, "
+          f"float32, k={DP_K}, {DP_MICRO_STEPS} micro-steps (gloo on CUDA "
+          f"tensors) in {wall:.1f} s with the processes' start; losses "
+          f"{r0['losses']} against one process on the {DP_RANKS * DP_B}-row "
+          f"batches {r0['one_losses']} ({r0['one_ms']:.2f} ms per "
+          f"micro-step there); worst share of the tolerance used {held}; "
+          f"ranks' states alike: {ranks[0]['digest'] == ranks[1]['digest']}")
+    failed = []
+    if any(r["launches"] != per_rank or r["plain"] for r in ranks):
+        failed.append(f"launches {[r['launches'] for r in ranks]}, plain "
+                      f"{[r['plain'] for r in ranks]}")
+    if ranks[0]["losses"] != ranks[1]["losses"] \
+            or ranks[0]["digest"] != ranks[1]["digest"]:
+        failed.append("the ranks disagree")
+    if not all(abs(a - b) <= 1e-4 * abs(b)
+               for a, b in zip(r0["losses"], r0["one_losses"])):
+        failed.append("losses")
+    for key, worst in held.items():
+        shares = [worst] if key == "running_stats" else \
+            [v[0] for v in worst.values()]
+        if not all(s <= 1.0 for s in shares):
+            failed.append(f"{key} {worst}")
+    if not r0["steps_equal_before_the_update"]:
+        failed.append("the lr-0 optimizer step moved a parameter")
+    if failed:
+        raise AssertionError(f"4p (b): {failed}")
+    report["launches"]["train_dp_w2"] = summed
+    report["train_dp"].update(
+        w2_ms_per_micro_step=[r["ms"] for r in ranks],
+        w2_event_ms=[r["event_ms"] for r in ranks],
+        w2_peak_memory_gib=[r["peak_gib"] for r in ranks],
+        w2_losses=r0["losses"], one_process_losses=r0["one_losses"],
+        one_process_ms_per_micro_step=r0["one_ms"], held=held,
+        w2_wall_s=wall, attention_held=r0["attention_held"],
+        attention_bwd_held=r0["attention_bwd_held"])
+
+
+def run_data_parallel(report: dict, card: str) -> None:
+    """Phase 4p (module doc): (a) then (b)."""
+    report.setdefault("train_dp", {})
+    _dp_world_one(report, card)
+    _dp_two_ranks(report, card)
 
 
 # ----------------------------------------------------------------- phase 4c
@@ -4109,8 +4506,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
-                        choices=("2", "3", "3q", "3x", "4a", "4b", "4e", "4c",
-                                 "4d", "6", "7", "8", "5"),
+                        choices=("2", "3", "3q", "3x", "4a", "4b", "4e", "4p",
+                                 "4c", "4d", "6", "7", "8", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -4143,6 +4540,7 @@ def main() -> int:
               ("4a", lambda: run_training(report, card, "deterministic")),
               ("4b", lambda: run_training(report, card, "default")),
               ("4e", lambda: run_training(report, card, "f32")),
+              ("4p", lambda: run_data_parallel(report, card)),
               ("4c", lambda: run_trainer(report, card)),
               ("4d", lambda: run_pipeline(report, card, root)),
               ("6", lambda: run_evaluation(report, card, root)),
@@ -4171,7 +4569,7 @@ def main() -> int:
         print(json.dumps({k: v for k, v in report.items()
                           if k in ("launches", "evaluation", "results",
                                    "prep", "attention", "attention_bwd",
-                                   "serve_int8", "export",
+                                   "serve_int8", "export", "train_dp",
                                    *TRAIN_TAGS.values())},
                          default=str))
         print(card)
@@ -4207,6 +4605,7 @@ def main() -> int:
                       "export": report["export"],
                       **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
+                      "train_dp": report["train_dp"],
                       "trainer": report["trainer"],
                       "pipeline": report["pipeline"],
                       "evaluation": report["evaluation"],
@@ -4223,4 +4622,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve_artifacts"]:  # phase 3x's second process
         sys.exit(serve_artifacts(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dp_rank"]:  # a rank of phase 4p (b)
+        sys.exit(dp_rank(sys.argv[2:]))
     sys.exit(main())

@@ -22,6 +22,12 @@ contract is `prepare_data()`, `setup()`, `train_batches(epoch)` and
   narration subtitle lines batched by exact audio duration
   (`val_triplet`, `valnarr_triplet`).
 
+Over several processes (`utils/dist.py`) every rank iterates the same
+deterministic stream (or the native loader's same plan, before any item is
+read) and keeps its slab of each global step through
+`multihost_interleave`: every rank gets the same number of batches with the
+same shapes, and the ragged tail is dropped.
+
 `SyntheticPigData` fills the datasets with synthetic clips instead.
 """
 
@@ -29,7 +35,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Iterator, List, Optional
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +48,35 @@ from peppa_tpu_torch.data.dataset import (PeppaPigDataset,
 from peppa_tpu_torch.data.stats import compute_stats, save_stats
 from peppa_tpu_torch.data.synthetic import SyntheticClipDataset
 from peppa_tpu_torch.data.types import ClipBatch
+from peppa_tpu_torch.utils import dist
+
+
+def multihost_interleave(stream: Iterable, shape_key: Callable,
+                         process_index: int, process_count: int) -> Iterator:
+    """Regroup a deterministic batch stream for several processes.
+
+    Every process iterates the same stream (same seed, same order) and gets
+    back one entry per global step such that at step t all processes hold a
+    batch of the same shape; the t-th global batch is the concatenation of
+    the processes' batches in rank order.  Entries are grouped by
+    `shape_key` in stream order; each complete group of `process_count`
+    same-shape entries emits element `process_index`.  Incomplete trailing
+    groups are dropped, so every process takes the same number of steps (a
+    ragged tail would leave a rank waiting in a collective)."""
+    if process_count <= 1:
+        yield from stream
+        return
+    pending = {}
+    for entry in stream:
+        group = pending.setdefault(shape_key(entry), [])
+        group.append(entry)
+        if len(group) == process_count:
+            yield group[process_index]
+            group.clear()
+
+
+def _batch_shape(batch: ClipBatch) -> Tuple:
+    return (tuple(batch.video.shape), tuple(batch.audio.shape))
 
 
 class PigData:
@@ -91,28 +126,43 @@ class PigData:
         self.val_dia3 = PeppaPigDataset(fragment_type="dialog", **lines)
         self.val_narr3 = PeppaPigDataset(fragment_type="narration", **lines)
 
+    @staticmethod
+    def _host_shard() -> Tuple[int, int]:
+        """(process_index, process_count): this rank's place among the
+        processes whose batches make one global batch."""
+        return dist.process_index(), dist.process_count()
+
     def train_batches(self, epoch: int = 0) -> Iterator[ClipBatch]:
-        d = self.data
-        buckets = tuple(self.config.tpu.bucket_durations)
+        """This rank's batches of epoch `epoch` (every batch, on one
+        process)."""
         native = self._native_train_batches(epoch)
         if native is not None:
             yield from native
-        elif hasattr(self.train, "__len__"):
+        else:
+            yield from multihost_interleave(self._python_train_batches(epoch),
+                                            _batch_shape, *self._host_shard())
+
+    def _python_train_batches(self, epoch: int) -> Iterator[ClipBatch]:
+        """Every batch of the epoch, read in Python: the item cache
+        shuffled and bucketed, or the stream decoded on the fly."""
+        d = self.data
+        buckets = tuple(self.config.tpu.bucket_durations)
+        if hasattr(self.train, "__len__"):
             yield from bucketed_batches(
                 self.train, batch_size=d.train.batch_size, buckets=buckets,
                 sample_rate=d.audio_sample_rate, shuffle=d.train.shuffle,
                 seed=self.config.training.seed + epoch)
-        else:  # decoded on the fly: bucket the stream as it comes
-            pending = {b: [] for b in buckets}
-            for item in self.train:
-                b = bucket_for(max(item.video_duration, item.audio_duration),
-                               buckets)
-                pending[b].append(item)
-                if len(pending[b]) == d.train.batch_size:
-                    yield collate(
-                        pending[b], video_frames=int(round(b * FPS)),
-                        audio_samples=int(round(b * d.audio_sample_rate)))
-                    pending[b] = []
+            return
+        pending = {b: [] for b in buckets}  # bucket the stream as it comes
+        for item in self.train:
+            b = bucket_for(max(item.video_duration, item.audio_duration),
+                           buckets)
+            pending[b].append(item)
+            if len(pending[b]) == d.train.batch_size:
+                yield collate(
+                    pending[b], video_frames=int(round(b * FPS)),
+                    audio_samples=int(round(b * d.audio_sample_rate)))
+                pending[b] = []
 
     def _native_train_batches(self, epoch: int
                               ) -> Optional[Iterator[ClipBatch]]:
@@ -141,6 +191,9 @@ class PigData:
             batch_size=d.train.batch_size, target_hw=d.target_size,
             sample_rate=d.audio_sample_rate, shuffle=d.train.shuffle,
             seed=cfg.training.seed + epoch)
+        # each rank its slot of every complete same-shape group of the plan
+        plan = list(multihost_interleave(
+            plan, lambda p: (len(p[0]),) + tuple(p[1]), *self._host_shard()))
         logging.info("Native loader: %d batches from %s", len(plan),
                      pack_path)
         return iter(NativeBatchLoader(pack, plan,

@@ -79,16 +79,20 @@ class PeppaPig(nn.Module):
                      sample_lengths: Optional[torch.Tensor] = None,
                      train: bool = False, tap: str = "embedding",
                      mask_padding: bool = False,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None,
+                     layerdrop_generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
         """Embed (B, S) waveforms to the shared 512-d space; training draws
-        dropout and layer-drop from `generator`."""
+        dropout from `generator` and layer-drop from `layerdrop_generator`
+        (None: `generator`)."""
         return self.audio_encoder(audio, sample_lengths, not train, tap,
-                                  mask_padding, generator)
+                                  mask_padding, generator,
+                                  layerdrop_generator)
 
     def forward(self, batch: Union[ClipBatch, TripletBatch],
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                layerdrop_generator: Optional[torch.Generator] = None
                 ) -> Union[ClipBatch, TripletBatch]:
         """On a `ClipBatch`: video pooling is masked by `video_frames`;
         audio pooling is not (`mask_padding=False`), as in the JAX package.
@@ -96,10 +100,11 @@ class PeppaPig(nn.Module):
         positive and negative through the video tower, with no lengths.
         `train=True` runs BatchNorm on batch statistics (updating the
         running ones) and the audio tower's dropout and layer-drop, drawn
-        from `generator`."""
+        from `generator` and `layerdrop_generator` (None: `generator`)."""
         if isinstance(batch, TripletBatch):
             a = self.encode_audio(batch.anchor, train=train,
-                                  generator=generator)
+                                  generator=generator,
+                                  layerdrop_generator=layerdrop_generator)
             p = self.encode_video(batch.positive, train=train)
             n = self.encode_video(batch.negative, train=train)
             return TripletBatch(anchor=a, positive=p, negative=n)
@@ -108,7 +113,8 @@ class PeppaPig(nn.Module):
                             f"{type(batch).__name__}")
         v = self.encode_video(batch.video, batch.video_frames, train=train)
         a = self.encode_audio(batch.audio, batch.audio_samples, train=train,
-                              generator=generator)
+                              generator=generator,
+                              layerdrop_generator=layerdrop_generator)
         return ClipBatch(video=v, audio=a,
                          video_duration=batch.video_duration,
                          audio_duration=batch.audio_duration,

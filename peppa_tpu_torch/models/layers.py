@@ -122,6 +122,11 @@ class BatchNorm(nn.Module):
     `use_fast_variance`), and updates the running ones as
     0.9 * running + 0.1 * batch without gradient.  (`F.batch_norm` would
     update `running_var` with the unbiased variance: another function.)
+
+    `moments`, when set (`parallel/mesh.py::sync_batch_norm`), computes
+    E[x] and E[x^2] over the global batch of a data-parallel run, as
+    flax's `jnp.mean` does under a JAX mesh; the running statistics then
+    move alike on every rank.  None (the default): this batch's.
     """
 
     def __init__(self, features: int, dtype: torch.dtype):
@@ -131,15 +136,19 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.moments = None  # (x, dims) -> (E[x], E[x^2]) of more rows
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
             axes = (0,) + tuple(range(2, x.ndim))
             xf = x.float()
-            mean = torch.mean(xf, dim=axes)
-            var = torch.clamp(torch.mean(xf * xf, dim=axes) - mean * mean,
-                              min=0.0)
+            if self.moments is None:
+                mean = torch.mean(xf, dim=axes)
+                mean_sq = torch.mean(xf * xf, dim=axes)
+            else:
+                mean, mean_sq = self.moments(xf, axes)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean
                                         + 0.1 * mean)

@@ -24,11 +24,15 @@ Training (`deterministic=False`) adds the JAX module's dropout (after
 `proj`, after `encoder_ln`, on the attention output, after the FFN GELU and
 after `ffn_out`, on the attention probabilities) and layer-drop (one
 Bernoulli(1 - layer_drop) per layer and forward; the layer runs and
-`torch.where` selects, as `jnp.where` does), all drawn from the one
-`torch.Generator` the caller passes.  Attention goes through the attention
-kernels (`ops/cuda/attention.py`, forward and backward) when `use_pallas`
-(the config's `tpu.use_pallas`) is set and the forward is deterministic or
-`attention_dropout` is 0; otherwise through the JAX module's own XLA route
+`torch.where` selects, as `jnp.where` does).  The dropout masks are drawn
+from the `generator` the caller passes, the layer-drop keeps from
+`layerdrop_generator` (the JAX module's "dropout" and "layerdrop"
+streams; without it, from `generator` too): a data-parallel run seeds the
+keeps alike on every rank and the masks per rank (`training/step.py`).
+Attention goes through the attention kernels (`ops/cuda/attention.py`,
+forward and backward) when `use_pallas` (the config's `tpu.use_pallas`)
+is set and the forward is deterministic or `attention_dropout` is 0;
+otherwise through the JAX module's own XLA route
 (scores, -inf mask, softmax, PV; dropout on the probabilities in
 training), which the dropout mask needs.  The config chooses the route.
 The JAX package also takes its XLA route past T = 2048, its TPU kernel's
@@ -248,10 +252,11 @@ class Wav2Vec2(nn.Module):
                 sample_lengths: Optional[torch.Tensor] = None,
                 deterministic: bool = True, tap: str = "logits",
                 mask_padding: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                layerdrop_generator: Optional[torch.Generator] = None):
         """waveform (B, S) -> (features at `tap`, frame lengths or None).
-        Training (`deterministic=False`) draws dropout and layer-drop from
-        `generator`."""
+        Training (`deterministic=False`) draws dropout from `generator` and
+        layer-drop from `layerdrop_generator` (None: `generator`)."""
         feats = self.feature_extractor(waveform, deterministic)
         frame_lengths = (conv_output_length(sample_lengths)
                          if sample_lengths is not None else None)
@@ -264,10 +269,12 @@ class Wav2Vec2(nn.Module):
         x = self.dropout(x, deterministic, generator)
         attn_lengths = frame_lengths if mask_padding else None
         layer_drop = self.cfg.layer_drop
+        keeps = generator if layerdrop_generator is None \
+            else layerdrop_generator
         for i in range(self.cfg.num_layers):
             layer = getattr(self, f"layer{i}")
             if not deterministic and layer_drop > 0:
-                keep = torch.rand((), generator=generator,
+                keep = torch.rand((), generator=keeps,
                                   device=x.device) < 1.0 - layer_drop
                 y = layer(x, attn_lengths, deterministic, generator)
                 x = torch.where(keep, y, x)
@@ -306,7 +313,9 @@ class Wav2Vec2Encoder(nn.Module):
                 sample_lengths: Optional[torch.Tensor] = None,
                 deterministic: bool = True, tap: str = "embedding",
                 mask_padding: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                layerdrop_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if waveform.ndim == 3:  # (B, 1, S) channel layout
             waveform = waveform[:, 0, :]
         if waveform.dtype == torch.int16:
@@ -316,7 +325,8 @@ class Wav2Vec2Encoder(nn.Module):
             trunk_tap = tap
         feats, frame_lengths = self.wav2vec2(waveform, sample_lengths,
                                              deterministic, trunk_tap,
-                                             mask_padding, generator)
+                                             mask_padding, generator,
+                                             layerdrop_generator)
         if tap in ("conv", "context", "logits"):
             return feats
 

@@ -12,11 +12,21 @@ with `--synthetic_data` on synthetic clips.  It reads the same
 `version_N/` under `--log_dir`, and exits 75 when a preemption signal
 stopped the run (after `checkpoints/preempted.ckpt` was written), so that
 a scheduler requeues it; `--auto_resume` then continues from it.
+
+On N cards of one host it runs as one process per card:
+
+    torchrun --nproc_per_node=N -m peppa_tpu_torch.run --config_file ...
+
+Each process joins the group `torchrun` describes (`WORLD_SIZE` > 1:
+`utils/dist.py::init_distributed`, NCCL on `cuda:LOCAL_RANK`, gloo with
+`--device cpu`) and trains on its slab of every global batch of N x
+`data.train.batch_size` rows; rank 0 writes the run directory.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import subprocess
 import sys
 from argparse import ArgumentParser
@@ -89,6 +99,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         consume_preempted_checkpoint, find_preempted_checkpoint)
     from peppa_tpu_torch.training.loop import Trainer
 
+    from peppa_tpu_torch.utils import dist
+
     data = (SyntheticPigData(config, n_train=args.synthetic_train,
                              n_val=args.synthetic_val,
                              n_classes=args.synthetic_classes)
@@ -101,11 +113,22 @@ def main(argv: Optional[List[str]] = None) -> int:
             auto_resumed = True
             logging.info("auto-resume: continuing from %s", resume_from)
 
-    trainer = Trainer(config, log_dir=args.log_dir, device=args.device)
-    logging.info("Run directory: %s", trainer.version_dir)
-    trainer.fit(data, pretrained_loader=pretrained_loader_from_config(config),
-                resume_from=resume_from)
-    if auto_resumed:
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    device = dist.init_distributed(args.device) if distributed \
+        else args.device
+    is_main = dist.is_main_process()
+    try:
+        trainer = Trainer(config, log_dir=args.log_dir, device=device)
+        logging.info("Run directory: %s", trainer.version_dir)
+        trainer.fit(data,
+                    pretrained_loader=pretrained_loader_from_config(config),
+                    resume_from=resume_from)
+    finally:
+        if distributed:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
+    if auto_resumed and is_main:
         # retire the checkpoint this run resumed from, also when it was
         # preempted again (it wrote its own, newer preempted.ckpt)
         consume_preempted_checkpoint(resume_from)

@@ -21,6 +21,12 @@ every due path: tmp file then `os.replace`, and hard links for the second
 and later paths, so a three-way save is one disk write.  At most one save
 is in flight.
 
+In a run over several processes only the main one writes (`write=False`
+elsewhere: the run directory, hparams.yaml, metrics and checkpoints are
+rank 0's); every rank still takes each snapshot, which inside an
+accumulation group all-reduces the ranks' buffers (`TrainState.state_dict`),
+and every rank resumes from the same file.
+
 `load_best_model` also reads the run directories of the JAX package
 (flax-msgpack `.ckpt` files with the same sidecars, read by
 `training/flax_msgpack.py`) and of the reference (Lightning `.ckpt` files,
@@ -66,10 +72,15 @@ def _host_copy(tree):
     return tree
 
 
-def snapshot(state) -> Dict[str, Any]:
+def snapshot(state, write: bool = True) -> Optional[Dict[str, Any]]:
     """`state.state_dict()` copied to host memory: later steps cannot
-    change it.  Returns once the copies have landed."""
-    payload = _host_copy(state.state_dict())
+    change it.  Returns once the copies have landed.  Every rank of a run
+    calls it (the state dict may take a collective); `write=False` (a rank
+    that writes nothing) returns None and copies nothing."""
+    state_dict = state.state_dict()
+    if not write:
+        return None
+    payload = _host_copy(state_dict)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
     return payload
@@ -109,9 +120,13 @@ def _read_meta(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
-def save_checkpoint(path: str, state, meta: Dict[str, Any]) -> None:
-    """Snapshot and write `state` to `path` with its sidecar, now."""
-    _publish(snapshot(state), [(path, meta)])
+def save_checkpoint(path: str, state, meta: Dict[str, Any],
+                    write: bool = True) -> None:
+    """Snapshot and write `state` to `path` with its sidecar, now (every
+    rank calls it; only `write` writes)."""
+    payload = snapshot(state, write)
+    if write:
+        _publish(payload, [(path, meta)])
 
 
 def load_checkpoint(path: str, state=None):
@@ -184,11 +199,15 @@ class CheckpointManager:
     """The two best monitors plus last.ckpt.  Each validation end takes one
     snapshot of the state and hands it to one background writer, which
     writes every due file from it while training goes on; `wait()` joins
-    the writes and raises the first failure."""
+    the writes and raises the first failure.  `write=False` (a rank other
+    than the main one) keeps the monitors' bookkeeping and takes part in
+    each snapshot, and touches no file."""
 
-    def __init__(self, version_dir: str):
+    def __init__(self, version_dir: str, write: bool = True):
+        self.write = write
         self.ckpt_dir = os.path.join(version_dir, "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if write:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.monitors = [CheckpointMonitor(self.ckpt_dir, m)
                          for m in MONITORS]
         self._executor = ThreadPoolExecutor(max_workers=1,
@@ -252,8 +271,9 @@ class CheckpointManager:
                 path, stale = decision
                 jobs.append((path, m.meta_dict(epoch, metrics)))
                 removals.extend(stale)
-                logging.info("Saving best %s=%.4f to %s", m.monitor,
-                             m.best_score, path)
+                if self.write:
+                    logging.info("Saving best %s=%.4f to %s", m.monitor,
+                                 m.best_score, path)
         jobs.append((os.path.join(self.ckpt_dir, "last.ckpt"), {
             "monitor": None,
             "best_model_score": None,
@@ -262,6 +282,9 @@ class CheckpointManager:
             "metrics": {k: float(v) for k, v in metrics.items()},
             "monitors": [m.meta_dict(epoch, metrics) for m in self.monitors],
         }))
+        if not self.write:
+            snapshot(state, write=False)
+            return
         # at most one save in flight, enforced before the next snapshot:
         # each holds a host copy of the whole state
         self._reap(block=len(self._pending) >= 1)
