@@ -99,6 +99,31 @@ Phases:
      step at phase 5's tolerances, the running statistics; each rank's ms
      per micro-step and peak memory (two ranks on one card measure
      correctness and overhead, not scaling);
+ 4r. `tpu.remat_audio` and `remat_video` (`torch.utils.checkpoint` of the
+     towers): 4a's configuration, batches and 16 micro-steps with both
+     flags and without, with `audio.dropout: 0.0` (kernel 1 24 times a
+     micro-step under remat against 12, kernel 2 12, kernel 3 once) and
+     with the defaults (dropout and layer-drop, whose masks the recompute
+     must draw again), then the static tower (k = 2, 4 micro-steps), all
+     with cuDNN's deterministic algorithms: the losses, the gradients
+     handed to BertAdam and the final state (parameters, running
+     statistics, moments) bit for bit against the run without remat; each
+     run's peak memory (remat at least 1 GiB lower) and CUDA-event median
+     ms per micro-step of micro-steps 2-16;
+ 4s. the trainer's profile window: a short `Trainer.fit` of 4a's
+     configuration with PEPPA_PROFILE_DIR and PEPPA_PROFILE_STEPS=2 writes
+     one trace that parses, with two `train_step` ranges and kernels 1 and
+     3 by name; then the seven-condition ablation sweep
+     (`peppa_tpu_torch/ablation_sweep.py::run_sweep`) at full width
+     (180x100 at 10 fps, 44.1 kHz, bf16, each condition's towers) on a
+     small synthetic tree (dialog train 1-4, dialog val 197-198,
+     narration val 1-2, two 7 s clips each): batches of 4, 3 micro-steps
+     and one validation batch a loader per fit, no sanity validation, k =
+     1, 20 bootstrap subsets; each fit's seconds and launches, the
+     scoring's, 7 distinct versions in conditions.yaml, the 28 rows of
+     scores.csv and both tables, no plain version on the card, then
+     kernels 1 and 3 against their plain versions on the first inputs of
+     each shape the sweep gave them;
  4c. `Trainer.fit` of the same configuration (the defaults: dropout,
      layer-drop) on `SyntheticPigData` (128 training clips, 100 in each of
      the four validation sets): sanity validation of 2 batches a loader,
@@ -193,7 +218,8 @@ phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 
 Launch counts are set to 0 just before each main path (3, 3q, 3x's artifact
 serving in its own process, 4a, 4b, 4e, 4p's world-size-1 run and each
-rank's two-rank run (the ranks report theirs), the
+rank's two-rank run (the ranks report theirs), each of 4r's runs, 4s's
+profiled fit, each of its seven fits and its scoring, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
 the battery, the targeted path and the towers of 6, each model step of
 7, the realign and the targeted path of 8) and read just after it.
@@ -2266,6 +2292,371 @@ def run_data_parallel(report: dict, card: str) -> None:
     report.setdefault("train_dp", {})
     _dp_world_one(report, card)
     _dp_two_ranks(report, card)
+
+
+# ----------------------------------------------------------------- phase 4r
+REMAT_STATIC_STEPS, REMAT_STATIC_K = 4, 2  # the static tower's runs
+
+
+def _remat_run(cfg, batches) -> dict:
+    """`train_step` on `batches` from the seed-0 weights: the losses, the
+    means handed to BertAdam (host copies), the final state (host copy),
+    the launches, the CUDA-event ms of micro-steps 2 on and the peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.training.checkpoint import snapshot
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+
+    model = init_model(cfg, seed=0)
+    state = TrainState.create(model, cfg)
+    handed = []
+    opt_step = state.optimizer.step
+
+    def kept_step(*a, **kw):
+        handed.append({n: p.grad.detach().to("cpu")
+                       for n, p in state.params.items()})
+        return opt_step(*a, **kw)
+
+    state.optimizer.step = kept_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, events = [], []
+    for batch in batches:
+        events.append((torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)))
+        events[-1][0].record()
+        state, m = train_step(state, batch, seed=0)
+        events[-1][1].record()
+        losses.append(m["train_loss"])
+    torch.cuda.synchronize()
+    launches = _counts()
+    step_ms = [a.elapsed_time(b) for a, b in events[1:]]
+    out = {"losses": [x.item() for x in losses], "handed": handed,
+           "launches": launches,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "event_ms_median": float(np.median(step_ms)),
+           "event_ms_range": [min(step_ms), max(step_ms)],
+           "state": snapshot(state)}
+    del state, model
+    return out
+
+
+def _same_runs(tag: str, got: dict, want: dict) -> int:
+    """The remat run against the plain one, bit for bit: the losses, the
+    means handed to BertAdam, every state tensor after the last step
+    (parameters, running statistics, moments, buffers).  Returns the
+    number of tensors held; raises at the first that differs."""
+    import torch
+
+    if got["losses"] != want["losses"]:
+        raise AssertionError(f"{tag}: losses {got['losses']} != "
+                             f"{want['losses']}")
+    if len(got["handed"]) != len(want["handed"]):
+        raise AssertionError(f"{tag}: {len(got['handed'])} optimizer "
+                             f"steps != {len(want['handed'])}")
+    n = 0
+    for i, (g, w) in enumerate(zip(got["handed"], want["handed"])):
+        for name in w:
+            if not torch.equal(g[name], w[name]):
+                d = (g[name] - w[name]).abs().max().item()
+                raise AssertionError(
+                    f"{tag}: the gradient of {name} handed to BertAdam at "
+                    f"optimizer step {i + 1} differs (max|d| {d:.3g})")
+            n += 1
+    return n + _same_state(want["state"], got["state"])
+
+
+def run_remat(report: dict, card: str) -> None:
+    """Phase 4r (module doc): 4a's configuration (B=8 of 2.3 s, k=8, 16
+    micro-steps) with `tpu.remat_audio` and `remat_video` against the same
+    run without them, with `audio.dropout: 0.0` (kernels 1 and 2) and with
+    the defaults (dropout and layer-drop, where the recompute must draw the
+    first run's masks), then the static tower (k=2, 4 micro-steps), all
+    with cuDNN's deterministic algorithms (its default weight gradients
+    add with atomics: two runs of one process would differ)."""
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.config import default_config
+
+    rng = np.random.default_rng(2)  # 4a's batches, in 4a's order
+    cfg0 = default_config()
+    batches = [_clip_batch(rng, cfg0, TRAIN_B, TRAIN_SECONDS)
+               for _ in range(TRAIN_MICRO_STEPS)]
+    n_layers = 12  # wav2vec2-base's
+    record = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("dropout0", "default", "static"):
+            cfg = default_config()
+            steps = TRAIN_MICRO_STEPS
+            if mode == "dropout0":
+                cfg.audio.dropout = 0.0
+            if mode == "static":
+                cfg.video.static = True
+                cfg.video.version = "static"
+                cfg.training.accumulate_grad_batches = REMAT_STATIC_K
+                steps = REMAT_STATIC_STEPS
+            runs = {}
+            for remat in (False, True):
+                cfg.tpu.remat_audio = cfg.tpu.remat_video = remat
+                tag = f"remat_{'on' if remat else 'off'}_{mode}"
+                t0 = time.perf_counter()
+                runs[remat] = run = _remat_run(cfg, batches[:steps])
+                per_step = {k: v / steps for k, v in run["launches"].items()}
+                print(f"4r {tag}: {steps} micro-steps in "
+                      f"{time.perf_counter() - t0:.1f} s with the init; "
+                      f"peak memory {run['peak_memory_gib']:.2f} GiB; CUDA "
+                      f"events: median {run['event_ms_median']:.2f} ms per "
+                      f"micro-step ({run['event_ms_range'][0]:.2f}-"
+                      f"{run['event_ms_range'][1]:.2f}; micro-steps 2-"
+                      f"{steps}); launches {run['launches']} "
+                      f"({per_step} per micro-step); losses "
+                      f"{[round(x, 6) for x in run['losses']]} ({card})")
+                report["launches"][tag] = run["launches"]
+                attn = n_layers * steps if mode == "dropout0" else 0
+                want = {"attention_fwd": attn * (2 if remat else 1),
+                        "attention_bwd": attn, "triplet_loss": steps}
+                if run["launches"] != want:
+                    raise AssertionError(f"4r {tag}: launches "
+                                         f"{run['launches']} != {want}")
+                if not all(np.isfinite(run["losses"])):
+                    raise AssertionError(f"4r {tag}: losses {run['losses']}")
+            off, on = runs[False], runs[True]
+            held = _same_runs(f"4r {mode}", on, off)
+            saved = off["peak_memory_gib"] - on["peak_memory_gib"]
+            print(f"4r {mode}: remat equals the plain run bit for bit: the "
+                  f"{steps} losses and {held} tensors (the gradients handed "
+                  f"to BertAdam at {len(off['handed'])} optimizer steps, "
+                  f"then every parameter, running statistic, moment and "
+                  f"buffer); peak memory {off['peak_memory_gib']:.2f} -> "
+                  f"{on['peak_memory_gib']:.2f} GiB ({saved:.2f} GiB "
+                  f"less), {off['event_ms_median']:.2f} -> "
+                  f"{on['event_ms_median']:.2f} ms per micro-step")
+            if mode != "static" and not saved >= 1.0:
+                raise AssertionError(f"4r {mode}: remat saved {saved:.2f} "
+                                     "GiB, not the 1 GiB expected")
+            record[mode] = {
+                "micro_steps": steps, "tensors_equal": held,
+                "peak_memory_gib": [off["peak_memory_gib"],
+                                    on["peak_memory_gib"]],
+                "event_ms_median": [off["event_ms_median"],
+                                    on["event_ms_median"]],
+                "event_ms_range": [off["event_ms_range"],
+                                   on["event_ms_range"]],
+                "launches": [off["launches"], on["launches"]]}
+            del runs, off, on
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    report["remat"] = record
+
+
+# ----------------------------------------------------------------- phase 4s
+PROFILE_STEPS = 2  # PEPPA_PROFILE_STEPS: micro-steps 2 and 3 traced
+PROFILE_KERNELS = ("attention_fwd_bf16_kernel", "attention_bwd_dq_bf16_kernel",
+                   "attention_bwd_dkdv_bf16_kernel", "loss_cluster_kernel")
+SWEEP_B, SWEEP_TRAIN_BATCHES, SWEEP_VAL_BATCHES = 4, 3, 1
+SWEEP_SAMPLES = 20  # the battery's bootstrap subsets
+SWEEP_EPISODES_TRAIN, SWEEP_EPISODES_VAL = 4, 2  # two 7 s clips each
+
+
+def _profile_window(report: dict, card: str, root: str) -> dict:
+    """`Trainer.fit` of 4a's configuration (`audio.dropout: 0.0`: kernels
+    1 and 2 in the micro-steps) on synthetic clips with PEPPA_PROFILE_DIR
+    and PEPPA_PROFILE_STEPS: one trace, parsed, holding micro-steps
+    PROFILE_STEPS to 2 PROFILE_STEPS - 1 as `train_step` ranges and kernels
+    1 and 3 by name."""
+    import glob
+    import shutil
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.data.datamodule import SyntheticPigData
+    from peppa_tpu_torch.training.loop import Trainer
+
+    cfg = default_config()
+    cfg.audio.dropout = 0.0
+    cfg.training.max_epochs = 1
+    cfg.training.limit_train_batches = 2 * PROFILE_STEPS + 1
+    cfg.training.limit_val_batches = 1
+    cfg.training.num_sanity_val_steps = 0
+    data = SyntheticPigData(cfg, n_train=TRAIN_B * (2 * PROFILE_STEPS + 1),
+                            n_val=TRAIN_B)
+    work = tempfile.mkdtemp(prefix="chip_smoke_profile_", dir=root)
+    trace_dir = os.path.join(work, "trace")
+    saved = {k: os.environ.get(k)
+             for k in ("PEPPA_PROFILE_DIR", "PEPPA_PROFILE_STEPS")}
+    os.environ.update(PEPPA_PROFILE_DIR=trace_dir,
+                      PEPPA_PROFILE_STEPS=str(PROFILE_STEPS))
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        Trainer(cfg, log_dir=os.path.join(work, "runs")).fit(data)
+        fit_s = time.perf_counter() - t0
+        launches = _counts()
+        files = glob.glob(os.path.join(trace_dir, "*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"4s: {len(files)} trace files: {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    # the host's ranges (the profiler adds a device-side copy of each)
+    ranges = sum(e.get("name") == "train_step"
+                 and e.get("cat") == "user_annotation" for e in events)
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for name in PROFILE_KERNELS:
+                if name in e.get("name", ""):
+                    kernels[name] = kernels.get(name, 0) + 1
+    print(f"4s profile window: fit of {2 * PROFILE_STEPS + 1} micro-steps "
+          f"in {fit_s:.1f} s, PEPPA_PROFILE_STEPS={PROFILE_STEPS}: one "
+          f"trace of {size} bytes, {len(events)} events, {ranges} "
+          f"train_step ranges; kernel events by name {kernels}; launches "
+          f"{launches} ({card})")
+    report["launches"]["profile_fit"] = launches
+    if ranges != PROFILE_STEPS:
+        raise AssertionError(f"4s: {ranges} train_step ranges in the trace")
+    want = {"attention_fwd_bf16_kernel": 12 * PROFILE_STEPS,
+            "loss_cluster_kernel": PROFILE_STEPS}  # one cluster at B = 8
+    for name, least in want.items():
+        if kernels.get(name, 0) < least:
+            raise AssertionError(f"4s: the trace holds {kernels} kernel "
+                                 f"events, fewer than {least} of {name}")
+    return {"fit_s": fit_s, "trace_bytes": size, "events": len(events),
+            "train_step_ranges": ranges, "kernel_events": kernels}
+
+
+def run_ablation_sweep(report: dict, card: str, root: str) -> None:
+    """Phase 4s (module doc): the profile window, then
+    `ablation_sweep.run_sweep` at full width (180x100 at 10 fps, 44.1
+    kHz, wav2vec2-base and R(2+1)D-18 or the static ResNet-18, bf16) on a
+    small synthetic tree: the seven conditions trained and scored, each
+    fit's seconds and launches, the scoring's, 7 distinct versions and the
+    28 rows of scores.csv; then each kernel against its plain version on
+    the first inputs of each shape the sweep gave it."""
+    import shutil
+
+    import pandas as pd
+    import torch
+
+    from peppa_tpu_torch import ablation_sweep
+    from peppa_tpu_torch.config import conditions, default_config
+    from peppa_tpu_torch.evaluation import evaluation
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.ops import loss as loss_op
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.training import loop
+
+    t_phase = time.perf_counter()
+    record = {"profile": _profile_window(report, card, root), "fits": {},
+              "plain": 0}
+    work = tempfile.mkdtemp(prefix="chip_smoke_sweep_", dir=root)
+    base = default_config()
+    base.data.data_dir = os.path.join(work, "data")
+    base.data.train.batch_size = base.data.val.batch_size = SWEEP_B
+    base.training.max_epochs = 1
+    base.training.limit_train_batches = SWEEP_TRAIN_BATCHES
+    base.training.limit_val_batches = SWEEP_VAL_BATCHES
+    base.training.num_sanity_val_steps = 0
+    base.training.accumulate_grad_batches = 1
+    names = list(conditions(base))
+
+    def fit(real):
+        def run(trainer, data, *a, **kw):
+            name = names[len(record["fits"])]
+            _reset_counts()
+            t0 = time.perf_counter()
+            state = real(trainer, data, *a, **kw)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            record["fits"][name] = {"s": s, "launches": _counts(),
+                                    "steps": state.step}
+            report["launches"][f"sweep_{name}"] = _counts()
+            print(f"4s fit {name}: {s:.1f} s, {state.step} micro-steps, "
+                  f"launches {_counts()}")
+            return state
+        return run
+
+    def scoring(real):
+        def run(*a, **kw):
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            record["scoring"] = {"s": time.perf_counter() - t0,
+                                 "launches": _counts()}
+            report["launches"]["sweep_scoring"] = _counts()
+            return out
+        return run
+
+    inputs: dict = {}
+    undo = [_patch(loop.Trainer, "fit", fit),
+            _patch(evaluation, "full_run", scoring),
+            _patch(wav2vec2, "mha_attention",
+                   _kept_inputs(inputs, "attention")),
+            _patch(loss_op, "fused_triplet_loss",
+                   _kept_inputs(inputs, "triplet_loss"))]
+    undo += [_patch({"attention": attention, "loss": loss}[m], name,
+                    _count_on_card(record)) for m, name in PLAIN_VERSIONS]
+    try:
+        t0 = time.perf_counter()
+        cond_map, results_dir = ablation_sweep.run_sweep(
+            work, base=base, n_samples=SWEEP_SAMPLES,
+            episodes_train=SWEEP_EPISODES_TRAIN,
+            episodes_val=SWEEP_EPISODES_VAL)
+        sweep_s = time.perf_counter() - t0
+        scores = pd.read_csv(os.path.join(results_dir, "scores.csv"))
+        tex = [os.path.exists(os.path.join(results_dir, f))
+               for f in ablation_sweep.ARTIFACTS[1:]]
+    finally:
+        for u in reversed(undo):
+            u()
+        shutil.rmtree(work, ignore_errors=True)
+    versions = [v for vals in cond_map.values() for v in vals]
+    print(f"4s sweep: {len(names)} conditions trained and scored in "
+          f"{sweep_s:.1f} s (scoring {record['scoring']['s']:.1f} s, "
+          f"launches {record['scoring']['launches']}); conditions.yaml "
+          f"{cond_map}; scores.csv {len(scores)} rows; plain versions on "
+          f"the card {record['plain']} ({card})")
+    if sorted(cond_map) != sorted(names) or len(versions) != len(names) \
+            or len(set(versions)) != len(names):
+        raise AssertionError(f"4s: conditions.yaml {cond_map}")
+    if len(scores) != 4 * len(names) or not all(tex):
+        raise AssertionError(f"4s: {len(scores)} score rows, tables {tex}")
+    if set(scores.version) != set(versions) or record["plain"]:
+        raise AssertionError(f"4s: versions {set(scores.version)}, plain "
+                             f"calls {record['plain']}")
+    for name, fit_record in record["fits"].items():
+        # the defaults' dropout: the plain attention route in the
+        # micro-steps, kernel 1 in validation (12 a batch), kernel 3 in
+        # both
+        n = fit_record["launches"]
+        if fit_record["steps"] != SWEEP_TRAIN_BATCHES \
+                or n["attention_bwd"] != 0 or n["attention_fwd"] == 0 \
+                or n["attention_fwd"] % 12 \
+                or n["triplet_loss"] <= SWEEP_TRAIN_BATCHES:
+            raise AssertionError(f"4s fit {name}: {fit_record}")
+    n = record["scoring"]["launches"]  # the battery: kernel 1 alone
+    if n["attention_fwd"] == 0 or n["attention_bwd"] or n["triplet_loss"]:
+        raise AssertionError(f"4s scoring: {record['scoring']}")
+    _hold_path_shapes(report, inputs, tag="sweep_shapes", each=False)
+    record.update(sweep_s=sweep_s, rows=len(scores), conditions=cond_map,
+                  phase_s=time.perf_counter() - t_phase)
+    print(f"4s: phase in {record['phase_s']:.1f} s")
+    report["sweep"] = record
 
 
 # ----------------------------------------------------------------- phase 4c
@@ -4507,7 +4898,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
                         choices=("2", "3", "3q", "3x", "4a", "4b", "4e", "4p",
-                                 "4c", "4d", "6", "7", "8", "5"),
+                                 "4r", "4s", "4c", "4d", "6", "7", "8", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -4541,6 +4932,8 @@ def main() -> int:
               ("4b", lambda: run_training(report, card, "default")),
               ("4e", lambda: run_training(report, card, "f32")),
               ("4p", lambda: run_data_parallel(report, card)),
+              ("4r", lambda: run_remat(report, card)),
+              ("4s", lambda: run_ablation_sweep(report, card, root)),
               ("4c", lambda: run_trainer(report, card)),
               ("4d", lambda: run_pipeline(report, card, root)),
               ("6", lambda: run_evaluation(report, card, root)),
@@ -4570,7 +4963,7 @@ def main() -> int:
                           if k in ("launches", "evaluation", "results",
                                    "prep", "attention", "attention_bwd",
                                    "serve_int8", "export", "train_dp",
-                                   *TRAIN_TAGS.values())},
+                                   "remat", "sweep", *TRAIN_TAGS.values())},
                          default=str))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -4606,6 +4999,7 @@ def main() -> int:
                       **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
                       "train_dp": report["train_dp"],
+                      "remat": report["remat"], "sweep": report["sweep"],
                       "trainer": report["trainer"],
                       "pipeline": report["pipeline"],
                       "evaluation": report["evaluation"],

@@ -4,19 +4,31 @@ Mirrors peppa_tpu/models/dual_encoder.py: the wav2vec2 audio branch and the
 video branch (a VideoResNet, or the static per-frame ResNet-18 under
 `video.static`), `encode_audio` / `encode_video` with tap points, and the
 forward on a `ClipBatch` or a `TripletBatch`.
+
+`tpu.remat_audio` / `tpu.remat_video` (the JAX package's `nn.remat` of the
+audio tower, and of the R(2+1)D or static tower) run the tower through
+`torch.utils.checkpoint` whenever the call records a graph: its
+activations are freed after the forward and recomputed in the backward.
+The numbers do not change.  The recompute draws the same dropout and
+layer-drop masks as the first run (from copies of the generators, see
+`_rematted`) and leaves BatchNorm's running statistics alone
+(`layers.recomputing`).  A call that records no graph (`eval_step`,
+`EncoderService`, the export's tracing: `torch.no_grad()` or
+`torch.inference_mode()`) runs the tower as it is.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from peppa_tpu_torch.config import Config
 from peppa_tpu_torch.data.types import ClipBatch, TripletBatch
-from peppa_tpu_torch.models.layers import Conv, Dense
+from peppa_tpu_torch.models.layers import Conv, Dense, recomputing
 from peppa_tpu_torch.models.normalization import resolve_stats
 from peppa_tpu_torch.models.resnet2d import ImageEncoder
 from peppa_tpu_torch.models.video3d import R3DEncoder
@@ -28,6 +40,36 @@ from peppa_tpu_torch.utils.device import resolve_device
 def dtype_of(precision: str) -> torch.dtype:
     return (torch.bfloat16 if precision in ("bf16", "16", "bfloat16")
             else torch.float32)
+
+
+def _rematted(fn: Callable, args: tuple,
+              generators: Sequence[Optional[torch.Generator]] = ()):
+    """`fn(*args, *generators)` through `torch.utils.checkpoint`.
+
+    `checkpoint` restores only the global RNG states for its recompute,
+    and the caller's generators have moved on by then: the recompute draws
+    from new generators set to the states the caller's had before the
+    first run (one copy per distinct generator, so two arguments that are
+    one generator stay one stream).  The caller's generators move once, as
+    without remat.  The recompute runs under `recomputing()`."""
+    states = {id(g): g.get_state() for g in generators if g is not None}
+    first = True
+
+    def run(*a):
+        nonlocal first
+        if first:
+            first = False
+            return fn(*a, *generators)
+        copies = {}
+        for g in generators:
+            if g is not None and id(g) not in copies:
+                copies[id(g)] = torch.Generator(device=g.device)
+                copies[id(g)].set_state(states[id(g)])
+        with recomputing():
+            return fn(*a, *(None if g is None else copies[id(g)]
+                            for g in generators))
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class PeppaPig(nn.Module):
@@ -73,7 +115,10 @@ class PeppaPig(nn.Module):
                      train: bool = False, tap: str = "embedding"
                      ) -> torch.Tensor:
         """Embed (B, T, H, W, C) video to the shared 512-d space."""
-        return self.video_encoder(video, frame_lengths, train, tap)
+        args = (video, frame_lengths, train, tap)
+        if self.config.tpu.remat_video and torch.is_grad_enabled():
+            return _rematted(self.video_encoder, args)
+        return self.video_encoder(*args)
 
     def encode_audio(self, audio: torch.Tensor,
                      sample_lengths: Optional[torch.Tensor] = None,
@@ -85,9 +130,11 @@ class PeppaPig(nn.Module):
         """Embed (B, S) waveforms to the shared 512-d space; training draws
         dropout from `generator` and layer-drop from `layerdrop_generator`
         (None: `generator`)."""
-        return self.audio_encoder(audio, sample_lengths, not train, tap,
-                                  mask_padding, generator,
-                                  layerdrop_generator)
+        args = (audio, sample_lengths, not train, tap, mask_padding)
+        generators = (generator, layerdrop_generator)
+        if self.config.tpu.remat_audio and torch.is_grad_enabled():
+            return _rematted(self.audio_encoder, args, generators)
+        return self.audio_encoder(*args, *generators)
 
     def forward(self, batch: Union[ClipBatch, TripletBatch],
                 train: bool = False,

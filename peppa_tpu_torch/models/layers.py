@@ -10,7 +10,9 @@ the JAX package keeps them; on the float path `Dense` and `Conv` cast input
 and weights to their compute dtype at call time (bf16 on the bf16 model),
 `LayerNorm` and `GroupNorm` compute and return float32, and `BatchNorm`
 computes in float32 and returns its dtype, as flax does.  `Dropout` draws
-its mask from the `torch.Generator` it is given.
+its mask from the `torch.Generator` it is given.  `recomputing()` marks the
+second run of a rematerialised tower (`models/dual_encoder.py`), in which
+`BatchNorm` leaves its running statistics alone.
 
 Weight layouts are PyTorch's: Linear (out, in), Conv (out, in, *kernel).
 `models/convert.py` moves the JAX package's layouts into them.
@@ -18,14 +20,33 @@ Weight layouts are PyTorch's: Linear (out, in), Conv (out, in, *kernel).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from peppa_tpu_torch.ops.quant import int8_conv, int8_matmul
+
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """The forward inside is the recompute of a rematerialised tower: a
+    training `BatchNorm` takes the batch's statistics again but does not
+    move its running ones a second time.  Per thread (autograd runs a
+    CUDA backward, and with it the recompute, on a thread of its own)."""
+    before = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
 
 
 def length_mask(lengths: torch.Tensor, size: int) -> torch.Tensor:
@@ -127,6 +148,11 @@ class BatchNorm(nn.Module):
     E[x] and E[x^2] over the global batch of a data-parallel run, as
     flax's `jnp.mean` does under a JAX mesh; the running statistics then
     move alike on every rank.  None (the default): this batch's.
+
+    Inside `recomputing()` (the recompute of a rematerialised tower) train
+    mode computes the batch's statistics again, as the gradient needs them,
+    and leaves the running ones as the first run left them: they move once
+    per recorded forward.
     """
 
     def __init__(self, features: int, dtype: torch.dtype):
@@ -149,10 +175,12 @@ class BatchNorm(nn.Module):
             else:
                 mean, mean_sq = self.moments(xf, axes)
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean
-                                        + 0.1 * mean)
-                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+            if not getattr(_recompute, "on", False):
+                with torch.no_grad():
+                    self.running_mean.copy_(0.9 * self.running_mean
+                                            + 0.1 * mean)
+                    self.running_var.copy_(0.9 * self.running_var
+                                           + 0.1 * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + 1e-5) * self.weight

@@ -146,3 +146,9 @@ class TrainState:
         if self._ranks_mid_group():
             for acc in self.acc_grads.values():
                 acc.div_(self.mesh.data)
+
+
+def param_count(model: nn.Module) -> int:
+    """The number of parameters of `model` (the JAX package's count of its
+    "params" tree: BatchNorm's running statistics are not parameters)."""
+    return sum(p.numel() for p in model.parameters())

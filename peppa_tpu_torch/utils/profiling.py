@@ -1,16 +1,50 @@
-"""Throughput accounting for the trainer's logs.
+"""Profiler traces and throughput accounting for the trainer's logs.
 
-Mirrors `StepTimer` of peppa_tpu/utils/profiling.py.  It reads the host
-clock only and synchronises nothing: in the trainer each step is timed
-where it has been issued, and the device holds the host back where the loop
-reads a loss (the finiteness check, one step late), as in the JAX package.
+Mirrors peppa_tpu/utils/profiling.py.  `trace(dir)` records a
+`torch.profiler` trace (host and CUDA activities) of the wrapped region
+into `dir` as a Chrome trace JSON, which Perfetto and
+chrome://tracing open; `annotate(name)` names a range inside it.
+`StepTimer` reads the host clock only and synchronises nothing: in the
+trainer each step is timed where it has been issued, and the device holds
+the host back where the loop reads a loss (the finiteness check, one step
+late), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """A `torch.profiler` trace of the wrapped region, written to
+    `log_dir`/trace_<pid>_<ns>.json (the directory is made); CUDA
+    activity too when the card is there.  A no-op when `log_dir` is
+    None or empty.  The caller synchronises before the region ends if the
+    trace should hold all the device work it issued."""
+    if not log_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named range inside an active trace (a no-op without one)."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 class StepTimer:

@@ -29,6 +29,7 @@ leaked = sorted(m for m in sys.modules
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 30, names
+assert "peppa_tpu_torch.ablation_sweep" in names, names
 """
 
 

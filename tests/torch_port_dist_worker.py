@@ -19,7 +19,11 @@ writes DIR/JOB_RANK.pkl:
   after its second micro-step; with rank 1 signalled (SIGTERM) after its
   third; and resumed from that run's preempted.ckpt;
 - "one" (WORLD 1): the "parallel" job's micro-steps on the whole global
-  batches, in one process with no group.
+  batches, in one process with no group;
+- "remat" (tests/test_torch_port_remat.py): two micro-steps (k = 2: an
+  optimizer step) of `remat_raw`'s configuration with `tpu.remat_audio` / `remat_video` off
+  and then on: the losses, the means handed to BertAdam, the state's
+  digest and the checkpoint calls of each.
 
 Imports torch and the port only (no JAX).  The configurations and batches
 come from the functions below, which the tests import too, so that both
@@ -75,6 +79,16 @@ def fit_raw(data_dir: str, batch_size: int = FIT_B) -> dict:
                            limit_val_batches=2, log_every_n_steps=1,
                            max_time="00:01:00:00")
     raw["optimizer"]["t_total"] = 100
+    return raw
+
+
+def remat_raw(data_dir: str) -> dict:
+    """The tiny configuration with the full audio trunk (one transformer
+    layer) and every stochastic rate at 0.1: dropout and layer-drop, and
+    synchronised BatchNorm (mc3_18's), under the recompute."""
+    raw = tiny_raw(data_dir)
+    raw["audio"] = {"full": True, "num_layers": 1, "dropout": 0.1}
+    raw["video"]["version"] = "mc3_18"
     return raw
 
 
@@ -258,6 +272,48 @@ def job_one(inp: dict, mesh) -> dict:
                       [ClipBatch(**b) for b in global_batches()])
 
 
+def job_remat(inp: dict, mesh) -> dict:
+    from peppa_tpu_torch.config import Config
+    from peppa_tpu_torch.data.types import ClipBatch
+    from peppa_tpu_torch.models import dual_encoder
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.parallel.mesh import shard_batch
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+
+    batches = [shard_batch(ClipBatch(**b), mesh) for b in global_batches()]
+    real_checkpoint = dual_encoder.checkpoint
+    out = {}
+    for name, on in (("plain", False), ("remat", True)):
+        cfg = Config.from_dict(remat_raw(inp["data_dir"]))
+        cfg.tpu.remat_audio = cfg.tpu.remat_video = on
+        model = init_model(cfg, seed=0, device="cpu")
+        state = TrainState.create(model, cfg, mesh)
+        handed, calls = [], [0]
+        opt_step = state.optimizer.step
+
+        def kept_step(*a, **kw):
+            handed.append({n: p.grad.detach().numpy().copy()
+                           for n, p in state.params.items()})
+            return opt_step(*a, **kw)
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return real_checkpoint(*a, **kw)
+
+        state.optimizer.step = kept_step
+        dual_encoder.checkpoint = counted
+        try:
+            losses = [train_step(state, b, seed=1, device="cpu")[1]
+                      ["train_loss"].item() for b in batches]
+        finally:
+            dual_encoder.checkpoint = real_checkpoint
+        out[name] = {"losses": losses, "handed": handed,
+                     "digest": state_digest(model.state_dict()),
+                     "checkpoints": calls[0], "micro_steps": len(batches)}
+    return out
+
+
 # ---------------------------------------------------------------- multihost
 def job_multihost(inp: dict, mesh) -> dict:
     import torch
@@ -417,7 +473,8 @@ def main(argv) -> int:
             inp = pickle.load(f)
         mesh = make_mesh() if group else None
         out = {"parallel": job_parallel, "one": job_one,
-               "multihost": job_multihost}[job](inp, mesh)
+               "multihost": job_multihost, "remat": job_remat}[job](inp,
+                                                                   mesh)
         with open(os.path.join(out_dir, f"{job}_{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
