@@ -99,6 +99,25 @@ Phases:
      step at phase 5's tolerances, the running statistics; each rank's ms
      per micro-step and peak memory (two ranks on one card measure
      correctness and overhead, not scaling);
+ 4t. the mesh's 'model' axis and serving over a mesh, in two rank
+     processes sharing the card over gloo on CUDA tensors as in 4p (b):
+     (a) on a (1, 2) mesh, 4p (b)'s float32 configuration (full width
+     and depth, `audio.dropout: 0.0`, k = 2, 4 micro-steps) on the same
+     micro-batches of 4 2.3 s clips on both ranks, each with 6 of the 12
+     heads and 1536 of the 3072 FFN columns of every layer: kernels 1 and
+     2 12 times a micro-step and kernel 3 once on each rank, no plain
+     version on the card; rank 0 holds kernel 1's float32 route (its plan
+     at B=4, H=6) and kernel 2's on the first inputs its split run gave
+     them, as 4e does, then takes the same steps in one process: the
+     losses within rtol 1e-4, the whole gradient handed to BertAdam
+     (clipped) and the whole parameters after each optimizer step at 4p
+     (b)'s tolerances, the running statistics; each rank's CUDA-event ms
+     per micro-step and peak memory beside one process's; (b) on a (2, 1)
+     mesh of the same ranks, `EncoderService(mesh=...)` of phase 3's bf16
+     configuration, weights and 40 + 40 requests at batch 32 (16 rows a
+     rank, kernel 1 12 times per audio batch on each rank): both ranks
+     return the same embeddings, held against one process's within
+     TP_SERVE_ATOL and each row's cosine above TP_SERVE_COS;
  4r. `tpu.remat_audio` and `remat_video` (`torch.utils.checkpoint` of the
      towers): 4a's configuration, batches and 16 micro-steps with both
      flags and without, with `audio.dropout: 0.0` (kernel 1 24 times a
@@ -218,7 +237,8 @@ phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
 
 Launch counts are set to 0 just before each main path (3, 3q, 3x's artifact
 serving in its own process, 4a, 4b, 4e, 4p's world-size-1 run and each
-rank's two-rank run (the ranks report theirs), each of 4r's runs, 4s's
+rank's two-rank run (the ranks report theirs), each rank's split
+training run and mesh serving of 4t, each of 4r's runs, 4s's
 profiled fit, each of its seven fits and its scoring, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
 the battery, the targeted path and the towers of 6, each model step of
@@ -994,7 +1014,9 @@ def _hold_int8(kept: dict) -> int:
             scale = (s_x * w_scale.reshape(-1)).view(
                 -1, *([1] * (w.ndim - 2)))
         else:
-            (out_dtype,) = args
+            out_dtype, group = args  # group None: the model is whole
+            if group is not None:
+                raise AssertionError("int8 matmul of a split layer")
             acc = quant.matmul_acc_plain(xq, wq)
             card = quant.matmul_acc_mm(xq.cuda(), wq.cuda())
             scale = s_x * w_scale.reshape(-1)
@@ -2292,6 +2314,336 @@ def run_data_parallel(report: dict, card: str) -> None:
     report.setdefault("train_dp", {})
     _dp_world_one(report, card)
     _dp_two_ranks(report, card)
+
+
+# ----------------------------------------------------------------- phase 4t
+TP_RANKS, TP_SERVE_B = 2, 32  # ranks sharing the card; serving batch
+TP_TIMEOUT = 600  # seconds for the two ranks' processes
+# the served embeddings of two ranks (16 rows each) against one process
+# (32 rows): cuBLAS and cuDNN may pick other bf16 algorithms for the
+# smaller batch, whose roundings move through 12 layers; each row's
+# cosine to one process's stays above TP_SERVE_COS
+TP_SERVE_ATOL, TP_SERVE_COS = 3e-2, 0.999
+
+
+def _tp_gathered(state, mesh, tensors) -> dict:
+    """{name: whole tensor on the host} of `tensors` (name -> this rank's
+    tensor, split as its parameter), gathered over the model axis."""
+    from peppa_tpu_torch.parallel.mesh import gather_model, param_shardings
+
+    split = (param_shardings(state.model, mesh)
+             if mesh is not None else {})
+    return {n: (t if split.get(n) is None
+                else gather_model(t, split[n], mesh)).detach().to(
+                    "cpu", copy=True)
+            for n, t in tensors.items()}
+
+
+def _tp_train(cfg, batches, mesh) -> dict:
+    """DP_MICRO_STEPS micro-steps from the seed-0 weights, the model split
+    over `mesh`'s model axis (None: whole): losses, CUDA-event ms, peak
+    memory, launches, and at each optimizer step the whole gradient handed
+    to BertAdam and the whole parameters after it (host copies), the
+    running statistics at the end and the digest of the whole state."""
+    import hashlib
+
+    import torch
+
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.parallel.mesh import shard_model
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+
+    model = init_model(cfg, seed=0)
+    if mesh is not None:
+        shard_model(model, mesh)
+    state = TrainState.create(model, cfg, mesh)
+    taken = []
+    real_step = state.optimizer.step
+
+    def step():
+        grads = _tp_gathered(state, mesh, {n: p.grad for n, p in
+                                           state.params.items()})
+        real_step()
+        taken.append((grads, _tp_gathered(state, mesh, state.params)))
+
+    state.optimizer.step = step
+    start = _tp_gathered(state, mesh, state.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, events = [], []
+    for batch in batches:
+        events.append((torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)))
+        events[-1][0].record()
+        state, m = train_step(state, batch, seed=0)
+        events[-1][1].record()
+        losses.append(m["train_loss"])
+    torch.cuda.synchronize()
+    out = {"launches": _counts(), "losses": [x.item() for x in losses],
+           "event_ms": [a.elapsed_time(b) for a, b in events[1:]],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "start": start, "taken": taken,
+           "stats": {n: b.detach().to("cpu", copy=True) for n, b in
+                     model.named_buffers() if "running_" in n}}
+    h = hashlib.sha256()
+    for t in state.state_dict()["model"].values():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    out["digest"] = h.hexdigest()
+    del state, model
+    return out
+
+
+def _tp_clipped(grads: dict, max_norm: float) -> dict:
+    """BertAdam's per-tensor clip of whole gradients."""
+    import torch
+
+    return {n: g * torch.clamp(max_norm / torch.clamp(g.norm(), min=1e-12),
+                               max=1.0) for n, g in grads.items()}
+
+
+def _tp_served(svc, waves, clips) -> dict:
+    """The service's embeddings of phase 3's requests, the launches and
+    the host seconds."""
+    import hashlib
+
+    import torch
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    a = svc.embed_audio(waves)
+    v = svc.embed_video(clips)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return {"audio": a, "video": v, "launches": _counts(), "s": s,
+            "digest": hashlib.sha256(a.tobytes() + v.tobytes()).hexdigest()}
+
+
+def tp_rank(argv) -> int:
+    """A rank of phase 4t, in a process of its own: `chip_smoke.py
+    --tp_rank RANK PORT DIR`.  Both ranks share card 0 over gloo on CUDA
+    tensors (NCCL refuses two ranks on one device).  (a) On a (1, 2) mesh
+    each trains DP_MICRO_STEPS float32 micro-steps of the same DP_B 2.3 s
+    clips with its 6 of the 12 heads and 1536 of the 3072 FFN columns of
+    every layer; (b) on a (2, 1) mesh of the same ranks each serves
+    TP_SERVE_B / 2 rows of every batch of phase 3's requests with the
+    whole bf16 model.  Rank 0 then holds kernels 1 and 2 against their
+    plain versions on the first inputs its split run gave them (float32
+    at B = DP_B, H = 6), takes (a)'s steps and serves (b)'s requests in
+    one process, and holds the runs against each other.  Writes
+    DIR/tp_rank_RANK.json."""
+    rank, port, out_dir = argv
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=rank, WORLD_SIZE=str(TP_RANKS), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+    import numpy as np
+    import torch
+    import torch.distributed as td
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.parallel.mesh import make_mesh
+    from peppa_tpu_torch.serving import EncoderService
+    from peppa_tpu_torch.utils.dist import init_distributed
+
+    init_distributed("cuda:0", backend="gloo")
+    pair = make_mesh((1, TP_RANKS))
+    rows = make_mesh((TP_RANKS, 1))
+    cfg = _dp_config("fp32")
+    cfg.tpu.mesh_shape = [1, TP_RANKS]
+    rng = np.random.default_rng(5)
+    batches = [_clip_batch(rng, cfg, DP_B, TRAIN_SECONDS)
+               for _ in range(DP_MICRO_STEPS)]
+    serve_cfg = default_config()  # phase 3's: bf16
+    waves, clips = _requests(np.random.default_rng(0), serve_cfg, 40)
+    record = {"plain": 0}
+    modules = {"attention": attention, "loss": loss}
+    undo = [_patch(modules[m], name, _count_on_card(record))
+            for m, name in PLAIN_VERSIONS]
+    kept = {}  # rank 0's first float32 forward and backward inputs
+    result = {}
+    try:
+        keep = ([_patch(attention, name, _keep_first(kept, name))
+                 for name in ("_launch", "_launch_bwd")]
+                if pair.model_rank == 0 else [])
+        try:
+            split = _tp_train(cfg, batches, pair)
+        finally:
+            for u in keep:
+                u()
+        model = init_model(serve_cfg, seed=0)
+        svc = EncoderService(model, serve_cfg, batch_size=TP_SERVE_B,
+                             mesh=rows)
+        served = _tp_served(svc, waves, clips)
+        result = {k: split[k] for k in ("launches", "losses", "event_ms",
+                                        "peak_gib", "digest")}
+        result["serve"] = {k: served[k] for k in ("launches", "s",
+                                                  "digest")}
+        result["serve"]["audio_batches"] = _audio_batches(svc, waves)
+        result["plain"] = record["plain"]
+        if pair.model_rank == 0:
+            tag = "4t (a) rank 0"
+            result["attention_held"] = _hold_fwd_f32(kept["_launch"], tag)
+            result["attention_bwd_held"] = _hold_bwd_f32(
+                kept["_launch_bwd"], tag)
+            one = _tp_train(cfg, batches, None)
+            result.update(one_losses=one["losses"],
+                          one_event_ms=one["event_ms"],
+                          one_peak_gib=one["peak_gib"],
+                          one_launches=one["launches"])
+            clip = cfg.optimizer.max_grad_norm
+            held = {}
+            for i, ((g2, p2), (g1, p1)) in enumerate(zip(split["taken"],
+                                                         one["taken"])):
+                held[f"grads_{i + 1}"] = _dp_hold(_tp_clipped(g2, clip),
+                                                  _tp_clipped(g1, clip))
+                held[f"params_{i + 1}"] = _dp_hold(p2, p1, one["start"])
+            held["running_stats"] = max(
+                ((split["stats"][n] - w).abs().max()
+                 / (1e-3 * w.abs().max() + 1e-6)).item()
+                for n, w in one["stats"].items())
+            result["held"] = held
+            first2, first1 = split["taken"][0][1], one["taken"][0][1]
+            result["steps_equal_before_the_update"] = all(
+                torch.equal(first2[n], first1[n]) for n in first1)
+            del split, one
+            whole = _tp_served(EncoderService(model, serve_cfg,
+                                              batch_size=TP_SERVE_B),
+                               waves, clips)
+            cos, diff = 1.0, 0.0
+            for kind in ("audio", "video"):
+                a, b = served[kind], whole[kind]
+                diff = max(diff, float(np.abs(a - b).max()))
+                cos = min(cos, float(np.min(np.sum(a * b, 1) / (
+                    np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1)))))
+                if a.shape != (40, 512) or not np.isfinite(a).all():
+                    raise AssertionError(f"4t (b): {kind} {a.shape}")
+            result["serve"].update(
+                max_abs_diff=diff, min_cosine=cos, one_s=whole["s"],
+                one_launches=whole["launches"])
+    finally:
+        for u in undo:
+            u()
+        td.destroy_process_group()
+    with open(os.path.join(out_dir, f"tp_rank_{rank}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_tensor_parallel(report: dict, card: str) -> None:
+    """Phase 4t (module doc): two rank processes (`tp_rank`) sharing the
+    card; their results held and summed."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp_rank", str(r),
+         port, out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(TP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"4t rank {r} exited {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    print(outs[0][-3000:])
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out_dir, f"tp_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    per_rank = {"attention_fwd": DP_LAYERS * DP_MICRO_STEPS,
+                "attention_bwd": DP_LAYERS * DP_MICRO_STEPS,
+                "triplet_loss": DP_MICRO_STEPS}
+    audio_batches = r0["serve"]["audio_batches"]
+    serve_per_rank = {"attention_fwd": DP_LAYERS * audio_batches,
+                      "attention_bwd": 0, "triplet_loss": 0}
+    for r, res in enumerate(ranks):
+        ms = res["event_ms"]
+        print(f"4t (a) rank {r}: launches {res['launches']}, plain calls on "
+              f"the card {res['plain']}; CUDA events "
+              f"{[round(x, 2) for x in ms]} ms per micro-step (micro-steps "
+              f"2-{DP_MICRO_STEPS}), peak {res['peak_gib']:.2f} GiB; (b) "
+              f"launches {res['serve']['launches']} for {audio_batches} "
+              f"audio batches, {res['serve']['s']:.2f} s: two ranks sharing "
+              f"one card measure correctness and memory, not scaling "
+              f"({card})")
+    fwd, bwd = r0["attention_held"], r0["attention_bwd_held"]
+    print(f"4t (a) rank 0: kernel 1 float32 at {fwd['shape']} ("
+          f"{fwd['key_splits']} key splits) max|d| {fwd['max_abs_err']:.3g} "
+          f"against plain; kernel 2 float32 max|d| {bwd['max_abs_err']:.3g} "
+          f"with the path's dO (max|plain| {bwd['max_abs_plain']:.3g}), "
+          f"{bwd['max_abs_err_unit_do']:.3g} with a unit-scale dO")
+    held, serve = r0["held"], r0["serve"]
+    print(f"4t (a): a (1, {TP_RANKS}) mesh, B={DP_B} of {TRAIN_SECONDS} s, "
+          f"float32, k={DP_K}, {DP_MICRO_STEPS} micro-steps (gloo on CUDA "
+          f"tensors) in {wall:.1f} s with (b) and the processes' start; "
+          f"losses {r0['losses']} against one process {r0['one_losses']} "
+          f"(CUDA events {[round(x, 2) for x in r0['one_event_ms']]} ms, "
+          f"peak {r0['one_peak_gib']:.2f} GiB there: the split moves the "
+          f"peak by {r0['peak_gib'] - r0['one_peak_gib']:+.2f} GiB); worst "
+          f"share of the tolerance used {held}; ranks' states alike: "
+          f"{ranks[0]['digest'] == ranks[1]['digest']}")
+    print(f"4t (b): a ({TP_RANKS}, 1) mesh serving phase 3's 40 + 40 "
+          f"requests at batch {TP_SERVE_B} ({TP_SERVE_B // TP_RANKS} rows a "
+          f"rank), bf16: max|d| {serve['max_abs_diff']:.3g} against one "
+          f"process (tolerance {TP_SERVE_ATOL}), least row cosine "
+          f"{serve['min_cosine']:.6f} (tolerance {TP_SERVE_COS}); "
+          f"{serve['s']:.2f} s against {serve['one_s']:.2f} s in one "
+          f"process; ranks alike: "
+          f"{ranks[0]['serve']['digest'] == ranks[1]['serve']['digest']}")
+    failed = []
+    if any(r["launches"] != per_rank or r["plain"] for r in ranks):
+        failed.append(f"launches {[r['launches'] for r in ranks]}, plain "
+                      f"{[r['plain'] for r in ranks]}")
+    if any(r["serve"]["launches"] != serve_per_rank for r in ranks):
+        failed.append(f"serving launches "
+                      f"{[r['serve']['launches'] for r in ranks]}")
+    if ranks[0]["losses"] != ranks[1]["losses"] \
+            or ranks[0]["digest"] != ranks[1]["digest"] \
+            or ranks[0]["serve"]["digest"] != ranks[1]["serve"]["digest"]:
+        failed.append("the ranks disagree")
+    if not all(abs(a - b) <= 1e-4 * abs(b)
+               for a, b in zip(r0["losses"], r0["one_losses"])):
+        failed.append("losses")
+    for key, worst in held.items():
+        shares = [worst] if key == "running_stats" else \
+            [v[0] for v in worst.values()]
+        if not all(s <= 1.0 for s in shares):
+            failed.append(f"{key} {worst}")
+    if not r0["steps_equal_before_the_update"]:
+        failed.append("the lr-0 optimizer step moved a parameter")
+    if not (serve["max_abs_diff"] <= TP_SERVE_ATOL
+            and serve["min_cosine"] >= TP_SERVE_COS):
+        failed.append(f"serving {serve}")
+    if failed:
+        raise AssertionError(f"4t: {failed}")
+    report["launches"]["train_tp"] = {
+        k: sum(r["launches"][k] for r in ranks) for k in per_rank}
+    report["launches"]["serve_mesh"] = {
+        k: sum(r["serve"]["launches"][k] for r in ranks)
+        for k in serve_per_rank}
+    report["tensor_parallel"] = {
+        "event_ms": [r["event_ms"] for r in ranks],
+        "peak_memory_gib": [r["peak_gib"] for r in ranks],
+        "one_process_event_ms": r0["one_event_ms"],
+        "one_process_peak_memory_gib": r0["one_peak_gib"],
+        "losses": r0["losses"], "one_process_losses": r0["one_losses"],
+        "held": held, "wall_s": wall,
+        "attention_held": fwd, "attention_bwd_held": bwd,
+        "serve": {k: serve[k] for k in ("max_abs_diff", "min_cosine", "s",
+                                        "one_s")}}
 
 
 # ----------------------------------------------------------------- phase 4r
@@ -4898,7 +5250,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
                         choices=("2", "3", "3q", "3x", "4a", "4b", "4e", "4p",
-                                 "4r", "4s", "4c", "4d", "6", "7", "8", "5"),
+                                 "4t", "4r", "4s", "4c", "4d", "6", "7", "8",
+                                 "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -4932,6 +5285,7 @@ def main() -> int:
               ("4b", lambda: run_training(report, card, "default")),
               ("4e", lambda: run_training(report, card, "f32")),
               ("4p", lambda: run_data_parallel(report, card)),
+              ("4t", lambda: run_tensor_parallel(report, card)),
               ("4r", lambda: run_remat(report, card)),
               ("4s", lambda: run_ablation_sweep(report, card, root)),
               ("4c", lambda: run_trainer(report, card)),
@@ -4963,7 +5317,8 @@ def main() -> int:
                           if k in ("launches", "evaluation", "results",
                                    "prep", "attention", "attention_bwd",
                                    "serve_int8", "export", "train_dp",
-                                   "remat", "sweep", *TRAIN_TAGS.values())},
+                                   "tensor_parallel", "remat", "sweep",
+                                   *TRAIN_TAGS.values())},
                          default=str))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -4999,6 +5354,7 @@ def main() -> int:
                       **train,
                       "train_batch": TRAIN_B, "train_clip_s": TRAIN_SECONDS,
                       "train_dp": report["train_dp"],
+                      "tensor_parallel": report["tensor_parallel"],
                       "remat": report["remat"], "sweep": report["sweep"],
                       "trainer": report["trainer"],
                       "pipeline": report["pipeline"],
@@ -5018,4 +5374,6 @@ if __name__ == "__main__":
         sys.exit(serve_artifacts(sys.argv[2:]))
     if sys.argv[1:2] == ["--dp_rank"]:  # a rank of phase 4p (b)
         sys.exit(dp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp_rank"]:  # a rank of phase 4t
+        sys.exit(tp_rank(sys.argv[2:]))
     sys.exit(main())

@@ -115,9 +115,10 @@ class TPUConfig:
     `native_loader`,
     `pack_audio_int16` and `prefetch` (the data pipeline and the trainer),
     `preempt_signals`, `collapse_guard` and `collapse_window` (the
-    trainer), `mesh_shape` and `mesh_axes` (the data axis over the
-    processes of a `torchrun` job, `parallel/mesh.py`; a 'model' axis
-    above 1 raises) and `global_negative_loss` (the loss of a run over
+    trainer), `mesh_shape` and `mesh_axes` (the data and model axes over
+    the processes of a `torchrun` job, `parallel/mesh.py`: a 'model' axis
+    splits the wav2vec2 transformer's heads and FFN columns) and
+    `global_negative_loss` (the loss of a run over
     several processes, `training/step.py`), `remat_audio` and
     `remat_video` (`torch.utils.checkpoint` of the audio tower and of the
     video tower in a call that records a graph, `models/dual_encoder.py`:

@@ -48,7 +48,7 @@ from peppa_tpu_torch.data.dataset import (PeppaPigDataset,
 from peppa_tpu_torch.data.stats import compute_stats, save_stats
 from peppa_tpu_torch.data.synthetic import SyntheticClipDataset
 from peppa_tpu_torch.data.types import ClipBatch
-from peppa_tpu_torch.utils import dist
+from peppa_tpu_torch.parallel.mesh import data_axis_of
 
 
 def multihost_interleave(stream: Iterable, shape_key: Callable,
@@ -126,11 +126,11 @@ class PigData:
         self.val_dia3 = PeppaPigDataset(fragment_type="dialog", **lines)
         self.val_narr3 = PeppaPigDataset(fragment_type="narration", **lines)
 
-    @staticmethod
-    def _host_shard() -> Tuple[int, int]:
-        """(process_index, process_count): this rank's place among the
-        processes whose batches make one global batch."""
-        return dist.process_index(), dist.process_count()
+    def _host_shard(self) -> Tuple[int, int]:
+        """(this rank's place, their number) among the processes whose
+        batches make one global batch: the mesh's data axis (the ranks of
+        a data row, which split the model, hold the same rows)."""
+        return data_axis_of(self.config)
 
     def train_batches(self, epoch: int = 0) -> Iterator[ClipBatch]:
         """This rank's batches of epoch `epoch` (every batch, on one

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from peppa_tpu_torch.ops.quant import int8_conv, int8_matmul
+from peppa_tpu_torch.parallel.mesh import reduce_over_model
 
 
 _recompute = threading.local()
@@ -59,7 +60,15 @@ class Dense(nn.Module):
     """y = x W^T + b in `dtype`; `dtype=None` computes in float32 (flax's
     promotion of bf16 inputs against float32 parameters).  With `quant`,
     an eval call takes the int8 product and adds the bias in `dtype`
-    after it (`QDense`)."""
+    after it (`QDense`).
+
+    `row_parallel` (a `Mesh`, set by `parallel/mesh.py::shard_model`):
+    the weight holds this rank's slice of the input features and `x` this
+    rank's slice of the input, so the product is a partial sum: it is
+    taken without the bias, summed over the model group in float32 (the
+    int8 product sums its int32 accumulators, with the weight and
+    activation scales of the whole tensors), cast once, and the bias,
+    which every rank holds whole, is added once after the sum."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: Optional[torch.dtype] = None, bias: bool = True,
@@ -67,16 +76,23 @@ class Dense(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.quant = quant
+        self.row_parallel = None
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype or torch.float32
         b = self.bias.to(dt) if self.bias is not None else None
+        mesh = self.row_parallel
         if self.quant and not train:
-            y = int8_matmul(x, self.weight, dt)
-            return y + b if b is not None else y
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+            y = int8_matmul(x, self.weight, dt,
+                            None if mesh is None else mesh.model_group)
+        elif mesh is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        else:
+            y = reduce_over_model(
+                F.linear(x.to(dt), self.weight.to(dt)).float(), mesh).to(dt)
+        return y + b if b is not None else y
 
 
 class Conv(nn.Module):
@@ -206,7 +222,13 @@ class Dropout(nn.Module):
         self.rate = rate
 
     def forward(self, x: torch.Tensor, deterministic: bool,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+        """`shard` = (dim, parts, index): `x` is slice `index` of `parts`
+        along `dim` of the whole tensor (a rank's heads or FFN columns):
+        the whole tensor's mask is drawn and this slice of it kept, so the
+        generator moves as without the split and the mask is the
+        unsplit run's."""
         if deterministic or self.rate == 0.0:
             return x
         if self.rate == 1.0:
@@ -214,8 +236,14 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout needs a torch.Generator in training")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator,
+        shape = list(x.shape)
+        if shard is not None:
+            dim, parts, index = shard
+            shape[dim] *= parts
+        keep = torch.rand(shape, generator=generator,
                           device=x.device) < keep_prob
+        if shard is not None:
+            keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 

@@ -38,6 +38,23 @@ training), which the dropout mask needs.  The config chooses the route.
 The JAX package also takes its XLA route past T = 2048, its TPU kernel's
 VMEM bound; the card's kernel has no such bound, so the port does not.
 
+Over a mesh's 'model' axis (`parallel/mesh.py::shard_model`) each rank
+holds num_heads / model heads and ffn_dim / model FFN columns (Megatron's
+pairing): q/k/v and `ffn_in` are column-parallel, their input the
+identity forward whose gradient is summed over the model group backward;
+`out_proj` and `ffn_out` are row-parallel (`layers.Dense.row_parallel`).
+The attention takes the same route rule on the local heads, so under
+`use_pallas` the kernels run on each rank's heads.  This differs on
+purpose from the JAX package, whose guard turns its Pallas attention off
+under a model axis (peppa_tpu/models/dual_encoder.py): GSPMD partitions
+that custom call by replicate-and-gather, which cannot happen here, where
+each rank holds whole heads; the function is the same.  Attention
+dropout and activation dropout draw the whole tensor's mask from the
+step's generator and keep this rank's heads or columns
+(`layers.Dropout`'s `shard`); the residual dropouts and layer-drop draw
+alike on every model rank, so the generators of one data row stay in step
+and the run is the unsplit run on the same seed.
+
 Taps: 'conv' (B, T, 512), 'context' (B, T, 768), 'logits' (B, T, 28).
 """
 
@@ -56,6 +73,7 @@ from peppa_tpu_torch.models.layers import (Conv, Dense, Dropout, GroupNorm,
 from peppa_tpu_torch.ops.cuda.attention import mha_attention
 from peppa_tpu_torch.ops.gelu import gelu
 from peppa_tpu_torch.ops.similarity import l2_normalize
+from peppa_tpu_torch.parallel.mesh import copy_to_model
 
 # (out_channels, kernel, stride) per conv layer of the feature extractor
 CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
@@ -153,27 +171,43 @@ class ConvPositionalEmbedding(nn.Module):
 class SelfAttention(nn.Module):
     """Multi-head self-attention: the attention kernels under `use_pallas`
     when deterministic or without attention dropout, else the plain route,
-    with dropout on the probabilities in training (module doc)."""
+    with dropout on the probabilities in training (module doc).  Over a
+    model axis (`shard`) it runs this rank's `heads`."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
                  use_pallas: bool = True, quant: bool = False):
         super().__init__()
         d = cfg.embed_dim
         self.heads = cfg.num_heads
+        self.head_dim = d // cfg.num_heads
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.mesh = None  # the model axis this rank's heads are a part of
         self.q_proj = Dense(d, d, dtype, quant=quant)
         self.k_proj = Dense(d, d, dtype, quant=quant)
         self.v_proj = Dense(d, d, dtype, quant=quant)
         self.out_proj = Dense(d, d, dtype, quant=quant)
         self.attn_dropout = Dropout(cfg.attention_dropout)
 
+    def shard(self, mesh) -> None:
+        """Run this rank's heads of `mesh`'s model axis: q/k/v hold their
+        output columns (column-parallel) and `out_proj` their input
+        columns (row-parallel); the weights are sliced by the caller
+        (`parallel/mesh.py::shard_model`)."""
+        self.mesh = mesh
+        self.heads //= mesh.model
+        self.out_proj.row_parallel = mesh
+
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, t, d = x.shape
-        hd = d // self.heads
+        b, t, _ = x.shape
+        hd = self.head_dim
         train = not deterministic
+        shard = None
+        if self.mesh is not None:
+            x = copy_to_model(x, self.mesh)
+            shard = (1, self.mesh.model, self.mesh.model_rank)
         q = self.q_proj(x, train).view(b, t, self.heads, hd)
         k = self.k_proj(x, train).view(b, t, self.heads, hd)
         v = self.v_proj(x, train).view(b, t, self.heads, hd)
@@ -189,13 +223,17 @@ class SelfAttention(nn.Module):
                 logits = logits.masked_fill(~mask[:, None, None, :],
                                             -math.inf)
             probs = torch.softmax(logits, dim=-1).to(self.dtype)
-            probs = self.attn_dropout(probs, deterministic, generator)
+            probs = self.attn_dropout(probs, deterministic, generator,
+                                      shard)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out_proj(out.reshape(b, t, d), train)
+        return self.out_proj(out.reshape(b, t, self.heads * hd), train)
 
 
 class TransformerLayer(nn.Module):
-    """Post-norm transformer layer (wav2vec2-base: layer_norm_first=False)."""
+    """Post-norm transformer layer (wav2vec2-base: layer_norm_first=False).
+    Over a model axis (`shard`) it runs this rank's heads and FFN
+    columns; the residual stream, the LayerNorms and the residual
+    dropouts are whole on every rank."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
                  use_pallas: bool = True, quant: bool = False):
@@ -207,6 +245,15 @@ class TransformerLayer(nn.Module):
         self.ln2 = LayerNorm(cfg.embed_dim)
         self.dropout = Dropout(cfg.dropout)
         self.activation_dropout = Dropout(cfg.activation_dropout)
+        self.mesh = None  # the model axis this rank's FFN columns are on
+
+    def shard(self, mesh) -> None:
+        """Run this rank's part of `mesh`'s model axis: its heads
+        (`SelfAttention.shard`) and FFN columns (`ffn_in` column-parallel,
+        `ffn_out` row-parallel); the weights are sliced by the caller."""
+        self.mesh = mesh
+        self.attention.shard(mesh)
+        self.ffn_out.row_parallel = mesh
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
                 deterministic: bool = True,
@@ -215,8 +262,12 @@ class TransformerLayer(nn.Module):
         attn = self.dropout(attn, deterministic, generator)
         x = self.ln1(x + attn)
         train = not deterministic
-        y = self.activation_dropout(gelu(self.ffn_in(x, train)),
-                                    deterministic, generator)
+        h, shard = x, None
+        if self.mesh is not None:
+            h = copy_to_model(x, self.mesh)
+            shard = (-1, self.mesh.model, self.mesh.model_rank)
+        y = self.activation_dropout(gelu(self.ffn_in(h, train)),
+                                    deterministic, generator, shard)
         y = self.dropout(self.ffn_out(y, train), deterministic, generator)
         return self.ln2(x + y)
 

@@ -37,6 +37,7 @@ import threading
 from typing import Sequence
 
 import torch
+import torch.distributed as td
 import torch.nn.functional as F
 
 Q_MAX = 127.0
@@ -50,11 +51,21 @@ def _scale_of(amax: torch.Tensor) -> torch.Tensor:
     return torch.clamp(amax, min=1e-12) / torch.full_like(amax, Q_MAX)
 
 
-def absmax_weight_scale(w: torch.Tensor) -> torch.Tensor:
+def _amax(x: torch.Tensor, group, **kw) -> torch.Tensor:
+    """max|x| (over `kw`'s dims), and with `group` the MAX of it over the
+    ranks of that process group (the whole tensor's, of which each rank
+    holds a slice)."""
+    amax = torch.amax(torch.abs(x.float()), **kw)
+    if group is not None:
+        td.all_reduce(amax, op=td.ReduceOp.MAX, group=group)
+    return amax
+
+
+def absmax_weight_scale(w: torch.Tensor, group=None) -> torch.Tensor:
     """Per-output-channel scale (the channel on axis 0): max|w| over the
-    other axes / 127, with those axes kept at size 1."""
-    return _scale_of(torch.amax(torch.abs(w.float()),
-                                dim=tuple(range(1, w.ndim)), keepdim=True))
+    other axes / 127, with those axes kept at size 1 (`group`: `_amax`)."""
+    return _scale_of(_amax(w, group, dim=tuple(range(1, w.ndim)),
+                           keepdim=True))
 
 
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -62,9 +73,10 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(q, -Q_MAX, Q_MAX).to(torch.int8)
 
 
-def act_scale(x: torch.Tensor) -> torch.Tensor:
-    """Dynamic per-tensor activation scale (a 0-d float32 tensor)."""
-    return _scale_of(torch.amax(torch.abs(x.float())))
+def act_scale(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Dynamic per-tensor activation scale (a 0-d float32 tensor;
+    `group`: `_amax`)."""
+    return _scale_of(_amax(x, group))
 
 
 def dequantize(acc: torch.Tensor, scale: torch.Tensor,
@@ -187,19 +199,27 @@ int8_conv.calls = 0
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
-                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.bfloat16,
+                group=None) -> torch.Tensor:
     """Quantized x @ w^T for (..., K) `x` and float (N, K) `w` with
-    per-N weight scales."""
+    per-N weight scales.  `group` (a row-parallel layer,
+    `models/layers.py::Dense`): `x` and `w` hold this rank's slice of K;
+    the scales are the whole tensors' (the MAX over the group) and the
+    int32 accumulators are summed over the group before the dequantize,
+    so every rank gets the unsplit product bit for bit."""
     with _count_lock:
         int8_matmul.calls += 1
-    w_scale = absmax_weight_scale(w)
+    w_scale = absmax_weight_scale(w, group)
     wq = quantize_int8(w, w_scale)
-    s_x = act_scale(x)
+    s_x = act_scale(x, group)
     xq = quantize_int8(x, s_x)
     if _device_of(x) == "cpu":
         acc = matmul_acc_plain(xq, wq)
     else:
         acc = matmul_acc_mm(xq, wq)
+    if group is not None:
+        acc = acc.contiguous()
+        td.all_reduce(acc, op=td.ReduceOp.SUM, group=group)
     return dequantize(acc, s_x * w_scale.reshape(-1), out_dtype)
 
 

@@ -17,6 +17,14 @@ Usage:
 
 `from_checkpoint` serves the best checkpoint of a run directory: the
 port's, the JAX package's (flax msgpack) or the reference's (Lightning).
+
+Over a mesh (`mesh=`, `parallel/mesh.py::make_mesh`; every rank of the
+process group builds the service and is called with the same requests),
+each padded batch's rows are split over the mesh's 'data' axis: each data
+row of ranks encodes its batch_size / data rows with the whole model (the
+parameters replicated, as the JAX service replicates them) and
+`all_gather_rows` returns every row to every rank, so each rank's result
+is the whole (N, 512) array.  batch_size must divide over the data axis.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 
 from peppa_tpu_torch.config import Config
 from peppa_tpu_torch.ops.similarity import cosine_matrix
+from peppa_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from peppa_tpu_torch.utils.device import resolve_device
 from peppa_tpu_torch.utils.request_batching import (canonicalize_video,
                                                     group_by_bucket,
@@ -38,9 +47,16 @@ class EncoderService:
     def __init__(self, model, config: Config, batch_size: int = 32,
                  buckets: Optional[Sequence[float]] = None,
                  fps: float = 10.0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[Mesh] = None):
         """`model` is moved to `device` (None: the card; raises without
-        CUDA) and put in eval mode."""
+        CUDA) and put in eval mode.  `mesh`: serve over its 'data' axis
+        (module doc); None: one process."""
+        if mesh is not None and mesh.data > 1 and batch_size % mesh.data:
+            raise ValueError(
+                f"batch_size {batch_size} must divide over the mesh's "
+                f"data axis ({mesh.data})")
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.config = config
@@ -64,7 +80,8 @@ class EncoderService:
         checkpoint's `tpu.quantize_int8`: the model is built again with
         the flag and takes the same weights (W8A8 serving, `ops/quant.py`;
         the quantization happens at call time, so the checkpoint is the
-        same)."""
+        same).  `kw` goes to the constructor (`mesh=` serves over a
+        mesh)."""
         from peppa_tpu_torch.models.dual_encoder import PeppaPig
         from peppa_tpu_torch.training.checkpoint import load_best_model
 
@@ -91,15 +108,22 @@ class EncoderService:
         return int(round(self.buckets[-1] * self.fps))
 
     # ------------------------------------------------------------ forward
-    def _audio_fn(self, batch: np.ndarray) -> np.ndarray:
+    def _encode(self, encode: Callable[[torch.Tensor], torch.Tensor],
+                batch: np.ndarray) -> np.ndarray:
+        """`encode` of a padded batch; over a mesh, of this data row's
+        rows, then every row gathered."""
         with torch.inference_mode():
             x = torch.from_numpy(batch).to(self.device)
-            return self.model.encode_audio(x).float().cpu().numpy()
+            if self.mesh is None:
+                return encode(x).float().cpu().numpy()
+            y = encode(shard_batch(x, self.mesh)).float()
+            return all_gather_rows(y, self.mesh).cpu().numpy()
+
+    def _audio_fn(self, batch: np.ndarray) -> np.ndarray:
+        return self._encode(self.model.encode_audio, batch)
 
     def _video_fn(self, batch: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            x = torch.from_numpy(batch).to(self.device)
-            return self.model.encode_video(x).float().cpu().numpy()
+        return self._encode(self.model.encode_video, batch)
 
     def warmup(self) -> None:
         """Run every (bucket, full batch) shape once: builds the kernels

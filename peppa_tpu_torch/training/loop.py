@@ -28,10 +28,12 @@ Mirrors peppa_tpu/training/loop.py:
   epoch's stream (a function of the seed and the epoch) past them.
 
 Over several processes (`torchrun`, `utils/dist.py`) it trains on the
-data axis of `tpu.mesh_shape` (`parallel/mesh.py`): each rank takes its
-slab of every global batch (`data/datamodule.py`), and the train step
-gathers the embeddings, synchronises BatchNorm and all-reduces the
-gradients.  Only rank 0 makes `version_N`, hparams.yaml, the metrics and
+mesh of `tpu.mesh_shape` (`parallel/mesh.py`): each data row of ranks
+takes its slab of every global batch (`data/datamodule.py`), and the train
+step gathers the embeddings, synchronises BatchNorm and all-reduces the
+gradients over the data axis; over a 'model' axis the model is split
+(`shard_model`, after the pretrained hook) and the ranks of a data row
+each run their heads and FFN columns of every transformer layer.  Only rank 0 makes `version_N`, hparams.yaml, the metrics and
 the checkpoints (the others' run directory is `nonmain_process`, never
 made); validation is replicated (every rank runs the same loaders, with no
 collective inside); every rank resumes from the same checkpoint.  Every
@@ -63,7 +65,7 @@ import torch
 from peppa_tpu_torch.config import Config
 from peppa_tpu_torch.evaluation.validation import run_validation
 from peppa_tpu_torch.models.dual_encoder import init_model
-from peppa_tpu_torch.parallel.mesh import agree, make_mesh
+from peppa_tpu_torch.parallel.mesh import agree, make_mesh, shard_model
 from peppa_tpu_torch.training.checkpoint import (CheckpointManager,
                                                  load_checkpoint,
                                                  next_version,
@@ -150,7 +152,8 @@ class Trainer:
         profile = contextlib.ExitStack()  # the profile window, when open
         try:
             guard.__enter__()
-            if self.mesh.data > 1 and (cfg.data.extract or cfg.data.prepare):
+            if self.mesh.data * self.mesh.model > 1 and (cfg.data.extract
+                                                         or cfg.data.prepare):
                 # every rank would write the same corpus files at once
                 raise ValueError(
                     "data.extract and data.prepare write the corpus's "
@@ -166,6 +169,7 @@ class Trainer:
                 pretrained_loader(model)
             logging.info("Model parameters: %.1fM",
                          param_count(model) / 1e6)
+            shard_model(model, self.mesh)  # this rank's heads and columns
             state = TrainState.create(model, cfg, self.mesh)
             start_epoch = 0
             resume_offset = 0  # micro-steps already trained in start_epoch

@@ -22,9 +22,10 @@ from __future__ import annotations
 
 import fnmatch
 import math
-from typing import Callable, Dict, Iterable, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as td
 from torch import nn
 
 
@@ -65,19 +66,26 @@ class BertAdam(torch.optim.Optimizer):
     """The reference update rule (module doc).  `step()` reads each
     parameter's `.grad` (None counts as zero: the decay still applies).
     Moments are float32 like the parameters; the optimizer-step counter is
-    kept per parameter group as `group["step"]`."""
+    kept per parameter group as `group["step"]`.
+
+    `norm_groups` maps a parameter that holds one rank's slice of a tensor
+    split over a mesh's model axis to that axis's process group: its clip
+    takes the norm of the whole tensor, the sum of squares summed over the
+    group.  Its moments are the slice's."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-4,
                  warmup: float = 0.1, t_total: int = 15000,
                  schedule: str = "warmup_linear", b1: float = 0.9,
                  b2: float = 0.999, e: float = 1e-6,
-                 weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 norm_groups: Optional[Dict[torch.Tensor, Any]] = None):
         if schedule not in SCHEDULES:
             raise ValueError(f"Invalid schedule parameter: {schedule}")
         super().__init__(params, dict(
             lr=lr, warmup=warmup, t_total=t_total, schedule=schedule, b1=b1,
             b2=b2, e=e, weight_decay=weight_decay,
             max_grad_norm=max_grad_norm, step=0))
+        self.norm_groups = dict(norm_groups or {})
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -92,7 +100,11 @@ class BertAdam(torch.optim.Optimizer):
                 g = (p.grad.float() if p.grad is not None
                      else torch.zeros_like(p, dtype=torch.float32))
                 if clip > 0:
-                    norm = torch.sqrt(torch.sum(torch.square(g)))
+                    squares = torch.sum(torch.square(g))
+                    if p in self.norm_groups:
+                        td.all_reduce(squares, op=td.ReduceOp.SUM,
+                                      group=self.norm_groups[p])
+                    norm = torch.sqrt(squares)
                     g = g * torch.clamp(clip / torch.clamp(norm, min=1e-12),
                                         max=1.0)
                 state = self.state[p]
@@ -143,11 +155,14 @@ def trainable_parameters(model: nn.Module,
     return {name: p for name, p in params.items() if mask[name]}
 
 
-def make_optimizer(opt_cfg, params: Iterable[torch.Tensor]) -> BertAdam:
+def make_optimizer(opt_cfg, params: Iterable[torch.Tensor],
+                   norm_groups: Optional[Dict[torch.Tensor, Any]] = None
+                   ) -> BertAdam:
     """BertAdam from an `OptimizerConfig` over `params` (the trainable
-    ones: see `trainable_parameters`)."""
+    ones: see `trainable_parameters`), `norm_groups` as BertAdam's."""
     return BertAdam(params, lr=opt_cfg.lr, warmup=opt_cfg.warmup,
                     t_total=opt_cfg.t_total, schedule=opt_cfg.schedule,
                     b1=opt_cfg.b1, b2=opt_cfg.b2, e=opt_cfg.e,
                     weight_decay=opt_cfg.weight_decay,
-                    max_grad_norm=opt_cfg.max_grad_norm)
+                    max_grad_norm=opt_cfg.max_grad_norm,
+                    norm_groups=norm_groups)

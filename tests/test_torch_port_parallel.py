@@ -52,7 +52,8 @@ from peppa_tpu_torch.config import Config
 from peppa_tpu_torch.data.types import ClipBatch
 from peppa_tpu_torch.models.layers import BatchNorm
 from peppa_tpu_torch.ops.loss import triplet_loss
-from peppa_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from peppa_tpu_torch.parallel.mesh import (Mesh, make_mesh, shard_batch,
+                                           shard_model)
 
 B_LOSS, D_LOSS = 16, 32
 LR = Config().optimizer.lr  # the tiny configuration's
@@ -280,10 +281,15 @@ def test_make_mesh_checks_the_process_group():
     assert make_mesh((1, 1)).data == 1
     with pytest.raises(ValueError, match="process group has 1"):
         make_mesh((2, 1))
-    with pytest.raises(NotImplementedError, match="A.5.8b"):
+    with pytest.raises(ValueError, match="puts 2 ranks on the mesh; the "
+                       "process group has 1"):
         make_mesh((1, 2))
     with pytest.raises(ValueError, match="'data' axis"):
         make_mesh((1,), ("model",))
+    model = W.small_wav2vec2()
+    box = torch.nn.ModuleDict({"wav2vec2": model})
+    with pytest.raises(ValueError, match="does not divide 4 attention heads"):
+        shard_model(box, Mesh((1, 3), ("data", "model")))
 
 
 def test_shard_batch_takes_this_ranks_rows():

@@ -23,13 +23,27 @@ writes DIR/JOB_RANK.pkl:
 - "remat" (tests/test_torch_port_remat.py): two micro-steps (k = 2: an
   optimizer step) of `remat_raw`'s configuration with `tpu.remat_audio` / `remat_video` off
   and then on: the losses, the means handed to BertAdam, the state's
-  digest and the checkpoint calls of each.
+  digest and the checkpoint calls of each;
+- "tp_train" (WORLD 4, a (2, 2) mesh) and "tp_one" (WORLD 1)
+  (tests/test_torch_port_tensor_parallel.py): two micro-steps of
+  `tp_raw`'s configuration, its transformer split over 'model', and the
+  same steps in one process;
+- "tp_pair" (WORLD 2, a (1, 2) mesh;
+  tests/test_torch_port_tensor_parallel_pair.py): `replicate_tree`, the
+  split forward in float32, bf16 and int8, the clip of a split parameter,
+  the default rates' micro-steps;
+- "tp_serve" (WORLD 2; tests/test_torch_port_tensor_parallel_serve.py):
+  a checkpoint written on a (1, 2) mesh and resumed on a (2, 1) mesh and
+  in one process, and `EncoderService` over the (2, 1) mesh's data axis;
+  rank 0 of "tp_pair" and "tp_serve" also runs each case in one process.
 
 Imports torch and the port only (no JAX).  The configurations and batches
 come from the functions below, which the tests import too, so that both
 sides are built alike.
 """
 
+import contextlib
+import functools
 import hashlib
 import os
 import pickle
@@ -90,6 +104,36 @@ def remat_raw(data_dir: str) -> dict:
     raw["audio"] = {"full": True, "num_layers": 1, "dropout": 0.1}
     raw["video"]["version"] = "mc3_18"
     return raw
+
+
+# the transformer of the tensor-parallel tests: 4 heads and 64 FFN columns
+TP_AUDIO = dict(embed_dim=32, num_heads=4, ffn_dim=64, pos_conv_kernel=8,
+                pos_conv_groups=4)
+MESHES = {"tp_train": (2, 2), "tp_pair": (1, 2), "tp_serve": (2, 1)}
+
+
+def tp_raw(data_dir: str, mesh_shape=(2, 2)) -> dict:
+    """The tiny configuration with the full audio trunk (two transformer
+    layers, `TP_AUDIO`'s widths under `small_transformer`),
+    `audio.dropout: 0.0`, mc3_18 (a third of r3d_18's parameters) and
+    `tpu.mesh_shape`."""
+    raw = tiny_raw(data_dir)
+    raw["audio"] = {"full": True, "num_layers": 2, "dropout": 0.0}
+    raw["video"]["version"] = "mc3_18"
+    raw["tpu"]["mesh_shape"] = list(mesh_shape)
+    return raw
+
+
+@contextlib.contextmanager
+def small_transformer(module):
+    """`module.Wav2Vec2Config` (either package's models/dual_encoder.py)
+    with `TP_AUDIO`'s widths, for the `with` block."""
+    real = module.Wav2Vec2Config
+    module.Wav2Vec2Config = functools.partial(real, **TP_AUDIO)
+    try:
+        yield
+    finally:
+        module.Wav2Vec2Config = real
 
 
 def global_batches(n: int = 2) -> list:
@@ -176,6 +220,52 @@ def tiny_steps(cfg, variables, batches, mesh=None) -> dict:
             out["stats"] = _flat(export_jax_variables(model)["batch_stats"])
     out["params"] = _flat(export_jax_variables(model)["params"])
     out["digest"] = state_digest(model.state_dict())
+    return out
+
+
+def tp_steps(cfg, variables, batches, mesh=None, ckpt=None) -> dict:
+    """`train_step` on each of `batches` from the JAX package's variables
+    (seed 1), the model split over `mesh`'s model axis: the losses; after
+    micro-step 1 the whole accumulation buffer (`state_dict()`'s: summed
+    over the data rows, gathered over the model axis) and the running
+    statistics; after the last the whole parameters, and with `ckpt` the
+    parameters of a checkpoint written there, loaded into an unsplit
+    model."""
+    import torch
+
+    from peppa_tpu_torch.models.convert import (export_jax_variables,
+                                                load_jax_variables)
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.parallel.mesh import shard_model
+    from peppa_tpu_torch.training.checkpoint import save_checkpoint
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+    from peppa_tpu_torch.utils import dist
+
+    model = init_model(cfg, seed=0, device="cpu")
+    load_jax_variables(model, variables)
+    if mesh is not None:
+        shard_model(model, mesh)
+    state = TrainState.create(model, cfg, mesh)
+    out = {"losses": []}
+    for i, batch in enumerate(batches):
+        state, m = train_step(state, batch, seed=1, device="cpu")
+        out["losses"].append(m["train_loss"].item())
+        if i == 0:
+            out["grads"] = _flat(export_jax_variables(
+                model, state.state_dict()["acc_grads"])["params"])
+            out["stats"] = _flat(export_jax_variables(model)["batch_stats"])
+    whole = state.state_dict()["model"]
+    params = {n: whole[n] for n, _ in model.named_parameters()}
+    out["params"] = _flat(export_jax_variables(model, params)["params"])
+    out["digest"] = state_digest(whole)
+    if ckpt is not None:
+        save_checkpoint(ckpt, state, {}, write=dist.is_main_process())
+        if mesh is not None:
+            torch.distributed.barrier()
+        loaded = init_model(cfg, seed=1, device="cpu")
+        loaded.load_state_dict(torch.load(ckpt, weights_only=True)["model"])
+        out["ckpt_params"] = _flat(export_jax_variables(loaded)["params"])
     return out
 
 
@@ -311,6 +401,182 @@ def job_remat(inp: dict, mesh) -> dict:
         out[name] = {"losses": losses, "handed": handed,
                      "digest": state_digest(model.state_dict()),
                      "checkpoints": calls[0], "micro_steps": len(batches)}
+    return out
+
+
+# ---------------------------------------------------------- tensor-parallel
+def job_tp_train(inp: dict, mesh) -> dict:
+    from peppa_tpu_torch.config import Config
+    from peppa_tpu_torch.data.types import ClipBatch
+    from peppa_tpu_torch.models import dual_encoder
+    from peppa_tpu_torch.parallel.mesh import shard_batch
+
+    with small_transformer(dual_encoder):
+        batches = [shard_batch(ClipBatch(**b), mesh)
+                   for b in global_batches()]
+        return tp_steps(Config.from_dict(inp["raw"]), inp["variables"],
+                        batches, mesh, os.path.join(inp["dir"], "tp.ckpt"))
+
+
+def job_tp_one(inp: dict, mesh) -> dict:
+    from peppa_tpu_torch.config import Config
+    from peppa_tpu_torch.data.types import ClipBatch
+    from peppa_tpu_torch.models import dual_encoder
+
+    with small_transformer(dual_encoder):
+        return tp_steps(Config.from_dict(inp["raw"]), inp["variables"],
+                        [ClipBatch(**b) for b in global_batches()])
+
+
+def _tp_model(raw: dict, variables, mesh=None, **tpu):
+    """The configuration of `raw` (with `tpu`'s flags) and its model with
+    the JAX package's variables, split over `mesh` (None: whole)."""
+    from peppa_tpu_torch.config import Config
+    from peppa_tpu_torch.models.convert import load_jax_variables
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.parallel.mesh import shard_model
+
+    cfg = Config.from_dict(raw)
+    for k, v in tpu.items():
+        setattr(cfg.tpu, k, v)
+    model = init_model(cfg, seed=0, device="cpu")
+    load_jax_variables(model, variables)
+    if mesh is not None:
+        shard_model(model, mesh)
+    return cfg, model
+
+
+def _both(rank: int, fn) -> dict:
+    """{"mesh": fn(True)}, and on rank 0 also {"one": fn(False)}."""
+    out = {"mesh": fn(True)}
+    if rank == 0:
+        out["one"] = fn(False)
+    return out
+
+
+def job_tp_pair(inp: dict, mesh) -> dict:
+    import torch
+
+    from peppa_tpu_torch.data.types import ClipBatch
+    from peppa_tpu_torch.models import dual_encoder
+    from peppa_tpu_torch.parallel.mesh import (gather_model, replicate_tree,
+                                               slice_model)
+    from peppa_tpu_torch.training.optimization import BertAdam
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+
+    raw, variables, out = inp["raw"], inp["variables"], {}
+    waves = torch.from_numpy(inp["waves"])
+    tree = {"a": [torch.full((3,), float(mesh.model_rank))],
+            "b": (torch.arange(4.0) * (mesh.model_rank + 1),)}
+    replicate_tree(tree, mesh)  # rank 0's tensors on both ranks
+    out["replicated"] = [tree["a"][0].numpy(), tree["b"][0].numpy()]
+
+    def encode(precision, quant=False):
+        r = dict(raw, training={"trainer_args": {"precision": precision}})
+
+        def run(split):
+            _, model = _tp_model(r, variables, mesh if split else None,
+                                 quantize_int8=quant)
+            with torch.no_grad():
+                return model.encode_audio(waves).float().numpy()
+        return _both(mesh.model_rank, run)
+
+    with small_transformer(dual_encoder):
+        out["forward"] = {p: encode(p) for p in (32, 16)}
+        out["int8"] = encode(32, quant=True)
+
+        # a split parameter whose whole gradient's norm passes the clip
+        # (max_grad_norm 1) while each slice's does not
+        grad = torch.from_numpy(inp["clip_grad"])
+        start = torch.linspace(-1.0, 1.0, grad.numel()).view(grad.shape)
+
+        def clipped(split, groups=True):
+            p = torch.nn.Parameter(slice_model(start, 0, mesh) if split
+                                   else start.clone())
+            p.grad = slice_model(grad, 0, mesh) if split else grad.clone()
+            opt = BertAdam([p], lr=0.1, t_total=-1, weight_decay=0.0,
+                           norm_groups={p: mesh.model_group}
+                           if split and groups else None)
+            opt.step()
+            m = opt.state[p]["m"]  # 0.1 of the clipped gradient
+            return [(gather_model(t, 0, mesh) if split else t).numpy()
+                    for t in (p.data, m)]
+        out["clip"] = _both(mesh.model_rank, clipped)
+        out["clip"]["per_slice"] = clipped(True, groups=False)
+        out["clip"]["slice_norm"] = float(slice_model(grad, 0, mesh).norm())
+
+        # the default rates, and every rate at 0.1 (activation dropout on)
+        batches = [ClipBatch(**b) for b in global_batches()]
+        for name, rates in (("defaults", None), ("rates", 0.1)):
+            r = dict(raw, audio=dict(raw["audio"], dropout=rates))
+
+            def steps(split):
+                cfg, model = _tp_model(r, variables,
+                                       mesh if split else None)
+                state = TrainState.create(model, cfg,
+                                          mesh if split else None)
+                names = [n for n, _ in model.named_parameters()]
+                start = {n: t.numpy().copy()
+                         for n, t in state.state_dict()["model"].items()
+                         if n in names}
+                losses = [train_step(state, b, seed=1, device="cpu")[1]
+                          ["train_loss"].item() for b in batches]
+                whole = state.state_dict()["model"]
+                return {"losses": losses, "start": start,
+                        "params": {n: whole[n].numpy() for n in names}}
+            out[name] = _both(mesh.model_rank, steps)
+    return out
+
+
+def job_tp_serve(inp: dict, mesh) -> dict:
+    import torch
+
+    from peppa_tpu_torch.data.types import ClipBatch
+    from peppa_tpu_torch.models import dual_encoder
+    from peppa_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from peppa_tpu_torch.serving import EncoderService
+    from peppa_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+    from peppa_tpu_torch.utils import dist
+
+    raw, variables, out = inp["raw"], inp["variables"], {}
+    ckpt = os.path.join(inp["dir"], "tp12.ckpt")
+    with small_transformer(dual_encoder):
+        # on a (1, 2) mesh of the same ranks: 3 micro-steps (k = 2: inside
+        # the second accumulation group), a checkpoint, micro-steps 4 and 5
+        batches = [ClipBatch(**b) for b in global_batches(5)]
+        pair = make_mesh((1, 2))
+        cfg, model = _tp_model(raw, variables, pair)
+        state = TrainState.create(model, cfg, pair)
+        for b in batches[:3]:
+            train_step(state, b, seed=1, device="cpu")
+        save_checkpoint(ckpt, state, {"epoch": 0},
+                        write=dist.is_main_process())
+        out["next_losses"] = [train_step(state, b, seed=1, device="cpu")[1]
+                              ["train_loss"].item() for b in batches[3:]]
+        torch.distributed.barrier()  # rank 0's file is complete
+        batches = batches[3:]
+
+        # resumed on the (2, 1) mesh, and in one process on rank 0
+        def resumed(split):
+            cfg, model = _tp_model(raw, variables)
+            state = TrainState.create(model, cfg, mesh if split else None)
+            load_checkpoint(ckpt, state)
+            return [train_step(state, shard_batch(b, mesh) if split else b,
+                               seed=1, device="cpu")[1]["train_loss"].item()
+                    for b in batches]
+        out["resumed"] = _both(mesh.rank, resumed)
+
+        def served(split):
+            cfg, model = _tp_model(raw, variables)
+            svc = EncoderService(model, cfg, batch_size=4, device="cpu",
+                                 mesh=mesh if split else None)
+            return {"audio": svc.embed_audio(inp["requests"]["audio"]),
+                    "video": svc.embed_video(inp["requests"]["video"])}
+        out["served"] = _both(mesh.rank, served)
     return out
 
 
@@ -471,10 +737,12 @@ def main(argv) -> int:
     try:
         with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
             inp = pickle.load(f)
-        mesh = make_mesh() if group else None
+        mesh = make_mesh(MESHES.get(job)) if group else None
         out = {"parallel": job_parallel, "one": job_one,
-               "multihost": job_multihost, "remat": job_remat}[job](inp,
-                                                                   mesh)
+               "multihost": job_multihost, "remat": job_remat,
+               "tp_train": job_tp_train, "tp_one": job_tp_one,
+               "tp_pair": job_tp_pair, "tp_serve": job_tp_serve}[job](inp,
+                                                                     mesh)
         with open(os.path.join(out_dir, f"{job}_{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
