@@ -22,7 +22,12 @@ Phases:
      CUDA graph, with the share of its bound), the
      triplet loss alone and with its gradient (B = 8, 13, 32, 1024 and two
      mixed-activity cases; timed at B = 8 and 32 back-to-back and replayed
-     from a CUDA graph, with `torch.profiler`'s kernel times beside);
+     from a CUDA graph, with `torch.profiler`'s kernel times beside); then
+     `torch.library.opcheck` of the dispatcher ops (the attention forward,
+     its training form with the log-sum-exp, its backward, the loss with
+     its gradient) on CUDA tensors at small shapes, bf16 and float32, with
+     and without key lengths, and the training op's output and
+     log-sum-exp against its plain version (TOL_LSE);
   3. the serving/eval forward of the base configuration (`hparams_base.yaml`:
      wav2vec2-base + R(2+1)D-18, bf16) at full width from seeded random
      weights: `EncoderService` warm-up and mixed-length requests over every
@@ -71,7 +76,12 @@ Phases:
      package's own plain route, and the first micro-steps run again from
      the same seed to show the run is reproducible; each timed as the
      host-clock mean over micro-steps 2-16 and as the median of their
-     CUDA-event times;
+     CUDA-event times; after (a), its trained audio tower in training mode
+     and the loss, forward and backward, compiled whole
+     (`torch.compile(backend="aot_eager", fullgraph=True)`) against the
+     same block run eagerly, both with cuDNN's deterministic algorithms:
+     bit for bit, the same launches (12, 12, 1), the ops by name in the
+     graphs and no `autograd.Function`;
  4e. the same 16 micro-steps in float32 (`training.precision: fp32`) with
      `audio.dropout: 0.0`: every attention through the float32 forward and
      backward kernels (192 launches each), timed as 4a, with the TF32
@@ -160,12 +170,12 @@ Phases:
      (`StepTimer`), validation seconds, checkpoint bytes and seconds (the
      host copy also again and as copies alone), peak memory;
  4d. the same fit over the data pipeline: an episode tree written to
-     $TMPDIR at full size (180x100, 44.1 kHz; dialog train episodes 1-16,
-     dialog val 197-209, narration val 1-13, two 12 s clips each), then
+     $TMPDIR at full size (180x100, 44.1 kHz; dialog train episodes 1-20,
+     dialog val 197-209, narration val 1-13, two 9.5 s clips each), then
      `Trainer.fit` on `PigData` with the defaults (jittered windows, the
      native loader): the item caches and the pack built once (seconds and
-     bytes), sanity validation, 16 micro-steps, the full validation (130
-     clips in each fixed loader, 130 lines in each line loader), the
+     bytes), sanity validation, 16 micro-steps, the full validation (104
+     clips in each fixed loader, 104 lines in each line loader), the
      checkpoints; `TripletScorer` on the dialog val lines with the trained
      model; the native batches served and the side-stream copies made
      during the fit, the launches of kernels 1 and 3, no plain version on
@@ -173,6 +183,14 @@ Phases:
      then the native loader alone over one epoch's plan, the copy rate of
      one 2.3 s batch (pinned on a side stream, and pageable through
      `ClipBatch.to`), and the step alone on the fit's 16 batches;
+ 6q. the int8 quality gate (`peppa_tpu_torch.quant_quality`) over phase
+     4d's run directory on its episode tree (seeded weights, 16
+     micro-steps, synthetic clips: not a production reading): the
+     validation battery with `tpu.quantize_int8` off and on over the same
+     weights, both rows and their deltas; kernel 1 12 times and kernel 3
+     once per validation batch in each, the int8 products, no plain
+     version on the card; kernels 1 and 3 against their plain versions on
+     the gate's shapes;
   6. the evaluation entry (after 4d, on its episode tree): the base model
      (seeded, bf16) written as a run directory of each format under
      $TMPDIR (the port's `torch.save`, the JAX package's flax msgpack by
@@ -182,7 +200,7 @@ Phases:
      embedded bit-identically); `python -m peppa_tpu_torch.evaluate` on
      the msgpack directory (the battery: triplet accuracy and recall@1-10
      of fixed and jittered windows, scrambled and not, 500 bootstrap
-     subsets) and `python -m peppa_tpu_torch.targeted_eval --run` on 42
+     subsets) and `python -m peppa_tpu_torch.targeted_eval --run` on 24
      minimal pairs cut from the tree's narration clips, each with its
      seconds, batches and kernel 1 launches (12 per batch; kernel 3 none;
      no plain version on the card); one B=8 video encode of the static,
@@ -206,8 +224,8 @@ Phases:
      targeted CLI's `--plot`); each step's seconds; kernel 1 against its
      plain version on every shape the phase gave it;
   8. the corpus-preparation path on raw episodes it writes under $TMPDIR
-     in the reference's `data/in` layout (narration val 1-4 and dialog val
-     197-200, 60 s each, 240x136 at 25 fps, mpeg4 + 44.1 kHz PCM .avi, 12
+     in the reference's `data/in` layout (narration val 1-2 and dialog val
+     197-198, 60 s each, 240x136 at 25 fps, mpeg4 + 44.1 kHz PCM .avi, 12
      subtitle lines each of a template grammar): `PigData.prepare_data`
      with `data.extract` (the 180x100 tree), `realign` of every val line
      with the port's wav2vec2-base CTC model (float32, seeded, full width
@@ -225,6 +243,20 @@ Phases:
      timed at the aligner's shapes (B=1, one key short of T), back-to-back
      and replayed from a CUDA graph, with its plain version, SDPA (both
      ways) and its bound;
+  9. the soak path on scripts/hparams_soak_production.yaml at full width
+     (wav2vec2-base, R(2+1)D-18, B = 16 x accumulate 4, 64x48 video, 8 kHz
+     audio, bf16 BatchNorm; `audio.pretrained: false` and a schedule cut
+     to 16 optimizer steps, validated every 32 micro-steps) on synthetic
+     clips: `peppa_tpu_torch.soak_run` drives two `--soak_child`
+     processes (each `peppa_tpu_torch.run.main`); the first is sent
+     SIGUSR1 after its first validation row and exits 75, the second
+     resumes with `--auto_resume` and ends the schedule;
+     `peppa_tpu_torch.soak_report` over the chain exits 0; each attempt's
+     exit code, micro-steps, clips/s, peak memory and launches (kernel 1
+     12 times per validation batch, kernel 3 once per micro-step and
+     validation batch, kernel 2 none: dropout 0.1 takes the plain
+     attention route), and each kernel against its plain version on the
+     attempt's shapes;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
@@ -233,16 +265,20 @@ evaluation, results and preparation metrics, the card's name and power
 limit, and the
 last line `{"ok": true, "device": {...}}`.  With `--phases`, only those
 phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
-7 brings phase 6), and the summary is their records.
+7 brings phase 6, and 6q brings 4d), and the summary is their records.
+`python3 chip_smoke.py --first_step` times a fresh process's first two
+micro-steps (phase 4a's configuration) and prints one JSON line.
 
 Launch counts are set to 0 just before each main path (3, 3q, 3x's artifact
 serving in its own process, 4a, 4b, 4e, 4p's world-size-1 run and each
 rank's two-rank run (the ranks report theirs), each rank's split
 training run and mesh serving of 4t, each of 4r's runs, 4s's
 profiled fit, each of its seven fits and its scoring, the
-fit and the resumed fit of 4c, the fit and the scorer of 4d, the loads,
-the battery, the targeted path and the towers of 6, each model step of
-7, the realign and the targeted path of 8) and read just after it.
+fit and the resumed fit of 4c, the fit and the scorer of 4d, 4a's
+compiled block, the gate of 6q, the loads, the battery, the targeted
+path and the towers of 6, each model step of 7, the realign and the
+targeted path of 8, each soak attempt of 9 in its own process) and read
+just after it.
 
 Any failed check raises, and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -771,6 +807,76 @@ def check_loss(report: dict) -> None:
         "plain_ms": main["plain_ms"], "library_ms": None,
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "max_abs_err": worst, "shapes": rows}
+
+
+# the training op's log-sum-exp against the plain one: float32 natural-log
+# units at phase 2's float32 forward tolerance, bf16 log2 units (ex2.approx
+# sums) ten times it; each atol + rtol|lse|
+TOL_LSE = {"float32": 1e-5, "bfloat16": 1e-4}
+
+
+def check_ops(report: dict) -> None:
+    """The dispatcher ops of kernels 1-3 on CUDA tensors at small shapes
+    (B=2, T=99, H=4, hd=64; the loss at B=13, D=512), bf16 and float32,
+    with and without key lengths: `torch.library.opcheck` (schema, fake
+    tensors, the autograd registration, the AOT-dispatched run against
+    the eager one), and the training op's output and log-sum-exp against
+    its plain version (`mha_attention_train_plain`)."""
+    import torch
+
+    from peppa_tpu_torch.ops.cuda import attention, loss
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn(2, 99, 4, 64, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        for lengths in (None, torch.tensor([99, 37], device="cuda")):
+            tag = f"{name} {'ragged' if lengths is not None else 'full'}"
+            scale = 64 ** -0.5
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            checks = {
+                "mha_attention": torch.library.opcheck(
+                    attention.attention_op, (q, k, v, lengths, scale)),
+                "mha_attention_train": torch.library.opcheck(
+                    attention.attention_train_op, (*leaves, lengths, scale))}
+            out, lse = attention.attention_train_op(q, k, v, lengths, scale)
+            checks["mha_attention_bwd"] = torch.library.opcheck(
+                attention.attention_bwd_op,
+                (q, k, v, do, lengths, scale, lse, out))
+            want, want_lse = attention.mha_attention_train_plain(
+                q, k, v, lengths, scale)
+            err = (out.float() - want.float()).abs().max().item()
+            lse_d = (lse - want_lse).abs()
+            tol = TOL_LSE[name]
+            n_ok = sum(r == "SUCCESS" for c in checks.values()
+                       for r in c.values())
+            print(f"ops {tag}: opcheck of {len(checks)} ops, {n_ok} checks "
+                  f"passed; training op output "
+                  f"max|d|={err:.3g} (tol {TOL_ATTN[name]}), lse "
+                  f"max|d|={lse_d.max().item():.3g} (tol {tol} + "
+                  f"{tol}|lse|)")
+            if any(r != "SUCCESS" for c in checks.values()
+                   for r in c.values()):
+                raise AssertionError(f"opcheck {tag}: {checks}")
+            if not err <= TOL_ATTN[name] or not bool(
+                    (lse_d <= tol + tol * want_lse.abs()).all()):
+                raise AssertionError(f"training op {tag}: output {err}, "
+                                     f"lse {lse_d.max().item()}")
+            rows.append({"dtype": name, "lengths": lengths is not None,
+                         "max_abs_err": err,
+                         "lse_max_abs_err": lse_d.max().item()})
+    for dtype in (torch.float32, torch.bfloat16):
+        va = [torch.randn(13, 512, generator=gen, device="cuda").to(dtype)
+              .requires_grad_() for _ in range(2)]
+        checks = torch.library.opcheck(loss.loss_op, (*va, 0.2))
+        print(f"ops loss {str(dtype).split('.')[1]}: opcheck {checks}")
+        if any(r != "SUCCESS" for r in checks.values()):
+            raise AssertionError(f"opcheck loss: {checks}")
+    report["ops"] = {"attention_train": rows, "seconds":
+                     time.perf_counter() - t0}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1797,6 +1903,8 @@ def run_training(report: dict, card: str, mode: str) -> None:
         report[tag]["attention_held"] = _hold_fwd_f32(kept["_launch"], tag)
         report[tag]["attention_bwd_held"] = _hold_bwd_f32(
             kept["_launch_bwd"], tag)
+    if mode == "deterministic":
+        _compiled_block(report, card, model, cfg, batches[0])
     if not deterministic:
         if losses[0] == report["train_deterministic"]["losses"][0]:
             raise AssertionError("dropout had no effect on the loss")
@@ -1810,6 +1918,102 @@ def run_training(report: dict, card: str, mode: str) -> None:
         if again != losses[:2]:
             raise AssertionError(f"{tag} is not reproducible: {again}")
     del state, model
+
+
+def _compiled_block(report: dict, card: str, model, cfg, batch) -> None:
+    """Phase 4a's tower, compiled: the audio tower in training mode on the
+    kernel route (`audio.dropout: 0.0`, so no dropout and no layer-drop) and
+    the loss against a seeded (B, 512) video side, forward and backward,
+    under `torch.compile(backend="aot_eager", fullgraph=True)` against the
+    same block run eagerly, both with cuDNN's deterministic algorithms: the
+    loss and every gradient bit for bit, the same launches of kernels 1-3
+    (12, 12 and 1), the ops by name in the graphs and no
+    `autograd.Function`; the compile's and both runs' seconds."""
+    import torch
+    from functorch.compile import make_boxed_func
+    from torch._dynamo.backends.common import aot_autograd
+
+    from peppa_tpu_torch.ops.loss import triplet_loss
+
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    samples = torch.as_tensor(batch.audio_samples, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    video = torch.nn.functional.normalize(
+        torch.randn(audio.shape[0], 512, generator=gen, device="cuda"), dim=1)
+    params = list(model.audio_encoder.parameters())
+
+    def block(audio, samples, video):
+        a = model.encode_audio(audio, samples, train=True)
+        return triplet_loss(video, a, cfg.margin)
+
+    graphs = {"dynamo": [], "aot": []}  # the traced graph; forward, backward
+
+    def keep(gm, _):
+        graphs["aot"].append(gm)
+        return make_boxed_func(gm.forward)
+
+    aot = aot_autograd(fw_compiler=keep, bw_compiler=keep)
+
+    def backend(gm, example_inputs):
+        graphs["dynamo"].append(gm)
+        return aot(gm, example_inputs)
+
+    def run(fn):
+        v = video.clone().requires_grad_()
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(audio, samples, v)
+        grads = torch.autograd.grad(out, [v] + params)
+        torch.cuda.synchronize()
+        return [out, *grads], time.perf_counter() - t0, _counts()
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run(block)  # cuDNN's deterministic algorithms chosen once
+        want, eager_s, eager_launches = run(block)
+        compiled = torch.compile(block, backend=backend, fullgraph=True)
+        got, first_s, launches = run(compiled)
+        _, again_s, again_launches = run(compiled)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    worst = max((g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want))
+    names = {kind: [str(n.target) for gm in gms for n in gm.graph.nodes
+                    if n.op == "call_function"]
+             for kind, gms in graphs.items()}
+    ops = {op: names["aot"].count(f"peppa_tpu_torch.{op}.default")
+           for op in ("mha_attention_train", "mha_attention_bwd",
+                      "fused_triplet_loss")}
+    functions = [n for kind in names for n in names[kind]
+                 if "autograd_function" in n or "Function" in n]
+    n_graphs = {kind: len(gms) for kind, gms in graphs.items()}
+    print(f"4a compiled: audio tower (train) + loss, aot_eager, fullgraph: "
+          f"graphs {n_graphs}, op nodes {ops}, autograd.Function nodes "
+          f"{len(functions)}; first call (compile) {first_s:.1f} s, again "
+          f"{again_s * 1e3:.1f} ms, eager {eager_s * 1e3:.1f} ms; launches "
+          f"eager {eager_launches}, compiled {launches}, again "
+          f"{again_launches}; loss and {len(got) - 1} gradients bit for bit: "
+          f"{sum(same)}/{len(same)} (max|d| {worst:.3g}) ({card})")
+    want_ops = {"mha_attention_train": DP_LAYERS,
+                "mha_attention_bwd": DP_LAYERS, "fused_triplet_loss": 1}
+    want_launches = {"attention_fwd": DP_LAYERS, "attention_bwd": DP_LAYERS,
+                     "triplet_loss": 1}
+    if ops != want_ops or functions or n_graphs != {"dynamo": 1, "aot": 2}:
+        raise AssertionError(f"compiled graphs: ops {ops}, functions "
+                             f"{functions}, graphs {n_graphs}")
+    if not eager_launches == launches == again_launches == want_launches:
+        raise AssertionError(f"compiled launches {launches}, {again_launches}"
+                             f" != eager {eager_launches}")
+    if not all(same):
+        raise AssertionError(f"compiled block differs from eager: {worst}")
+    report["launches"]["train_compiled"] = launches
+    report["train_deterministic"]["compiled"] = {
+        "graphs": n_graphs, "op_nodes": ops, "compile_s": first_s,
+        "compiled_s": again_s, "eager_s": eager_s, "bit_for_bit": True,
+        "launches": launches}
 
 
 def _keep_first(kept: dict, name: str):
@@ -3475,11 +3679,14 @@ def run_trainer(report: dict, card: str) -> None:
 
 
 # ----------------------------------------------------------------- phase 4d
-# the episode tree: dialog train 1-16, dialog val 197-209, narration val
-# 1-13, two 12 s clips each (SPLIT_SPEC's episode numbers)
-PIPELINE_EPISODES = {"dialog": tuple(range(1, 17)) + tuple(range(197, 210)),
+# the episode tree: dialog train 1-20, dialog val 197-209, narration val
+# 1-13, two 9.5 s clips each (SPLIT_SPEC's episode numbers): 160 train
+# windows (19 batches of 8, the fit takes 16), 104 in each fixed
+# validation set (the recall's subsets take 100) and 104 lines in each
+# line set
+PIPELINE_EPISODES = {"dialog": tuple(range(1, 21)) + tuple(range(197, 210)),
                      "narration": tuple(range(1, 14))}
-PIPELINE_CLIPS, PIPELINE_CLIP_S = 2, 12.0
+PIPELINE_CLIPS, PIPELINE_CLIP_S = 2, 9.5
 PIPELINE_FIELDS = ("video", "audio", "video_duration", "audio_duration",
                    "video_frames", "audio_samples")
 
@@ -3566,7 +3773,6 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
     16 batches."""
     import itertools
     import random
-    import shutil
     from collections import Counter
 
     import numpy as np
@@ -3762,19 +3968,94 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
             "copy_bytes": n_bytes, "copy_pinned_gb_per_s": pinned_gbs,
             "copy_pageable_gb_per_s": pageable_gbs,
             "scorer_s": scorer_s, "scorer_accuracy": float(acc.mean()),
-            "peak_memory_gib": peak, "metrics": metrics}
+            "peak_memory_gib": peak, "metrics": metrics,
+            "val_batches": per_loader}
+        # the run directory stays for phase 6q (which removes it), else
+        # until the end of the script
+        report["pipeline_run"] = trainer.version_dir
         del state, trainer, batches
     finally:
         for u in undo:
             u()
-        shutil.rmtree(os.path.join(root, "logs"), ignore_errors=True)
     _hold_path_shapes(report, inputs, "pipeline_shapes")
+
+
+# ----------------------------------------------------------------- phase 6q
+QUANT_KEYS = ("val_loss", "val_rec_fixed", "valnarr_loss",
+              "valnarr_rec_fixed", "val_triplet", "valnarr_triplet")
+
+
+def run_quant_quality(report: dict, card: str, root: str) -> None:
+    """The int8 quality gate (`python -m peppa_tpu_torch.quant_quality`'s
+    `quant_quality`) over phase 4d's run directory on its episode tree:
+    the best checkpoint of 16 micro-steps from seeded weights on synthetic
+    clips, so its rows say what int8 does to a barely trained model, not
+    a production reading.  The validation battery with
+    `tpu.quantize_int8` off and then on over the same weights: both rows
+    finite with the six keys, kernel 1 12 times and kernel 3 once per
+    validation batch in each, the int8 products counted in the second, no
+    plain version on the card; then kernels 1 and 3 against their plain
+    versions on the first inputs of each shape the gate gave them."""
+    import math
+
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.ops import loss as loss_op
+    from peppa_tpu_torch.ops import quant
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.quant_quality import quant_quality
+
+    version_dir = report["pipeline_run"]
+    batches = sum(report["pipeline"]["val_batches"])  # the same loaders
+    record = {"plain": 0}
+    inputs: dict = {}
+    modules = {"attention": attention, "loss": loss}
+    undo = [_patch(wav2vec2, "mha_attention",
+                   _kept_inputs(inputs, "attention")),
+            _patch(loss_op, "fused_triplet_loss",
+                   _kept_inputs(inputs, "triplet_loss"))]
+    undo += [_patch(modules[m], name, _count_on_card(record))
+             for m, name in PLAIN_VERSIONS]
+    products = quant.int8_conv.calls + quant.int8_matmul.calls
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rows = quant_quality(version_dir)
+    finally:
+        for u in undo:
+            u()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    products = quant.int8_conv.calls + quant.int8_matmul.calls - products
+    print(f"6q: quant_quality over phase 4d's run (the synthetic episode "
+          f"tree, seeded weights, 16 micro-steps: not a production reading) "
+          f"in {seconds:.1f} s; {batches} validation batches a row; "
+          f"launches {launches}; int8 products {products}; plain versions "
+          f"on the card {record['plain']} ({card})")
+    for label in ("float", "int8"):
+        row = rows[label]
+        if set(row) != set(QUANT_KEYS) or not all(
+                math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"6q {label} row {row}")
+    want = {"attention_fwd": 2 * DP_LAYERS * batches, "attention_bwd": 0,
+            "triplet_loss": 2 * batches}
+    if launches != want or record["plain"] or not products:
+        raise AssertionError(f"6q launches {launches} != {want}, plain "
+                             f"{record['plain']}, int8 products {products}")
+    report["launches"]["quant_quality"] = launches
+    report["quant_quality"] = {
+        "run": "phase 4d (synthetic tree, seeded, 16 micro-steps)",
+        "float": rows["float"], "int8": rows["int8"],
+        "deltas": {k: rows["int8"][k] - rows["float"][k] for k in QUANT_KEYS},
+        "seconds": seconds, "validation_batches": batches,
+        "int8_products": products}
+    shutil.rmtree(os.path.join(root, "logs"), ignore_errors=True)
+    _hold_path_shapes(report, inputs, "quant_quality_shapes", each=False)
 
 
 # ------------------------------------------------------------------ phase 6
 EVAL_SAMPLES = 500  # the battery's bootstrap subsets and triplet rounds
 TARGETED_POS = ("ADJ", "VERB", "NOUN")
-TARGETED_PAIRS = 14  # per POS tag: 42 minimal pairs, 84 clips
+TARGETED_PAIRS = 8  # per POS tag: 24 minimal pairs, 48 clips
 WEIGHT_NORM_RTOL = 1e-6  # the positional conv's g and v
 TOWER_B, TOWER_SECONDS = 8, 2.3
 RUN_META = {"monitor": "valnarr_triplet", "mode": "max",
@@ -3865,7 +4146,8 @@ def _targeted_eval_sets(data_dir: str, cfg, rng) -> int:
         rows = []
         for i in range(TARGETED_PAIRS):
             episode = files[(p * TARGETED_PAIRS + i) % len(files)]
-            t0 = float(rng.uniform(0.5, 7.0))
+            # the pair's two cuts span at most 4 s: both end in the clip
+            t0 = float(rng.uniform(0.5, PIPELINE_CLIP_S - 4.5))
             t1 = t0 + float(rng.uniform(0.4, 1.5))
             t2 = t1 + float(rng.uniform(0.2, 1.0))
             t3 = t2 + float(rng.uniform(0.4, 1.5))
@@ -4606,9 +4888,9 @@ def run_results(report: dict, card: str, root: str) -> None:
 
 
 # ------------------------------------------------------------------ phase 8
-# the raw episodes: narration val 1-4 and dialog val 197-200, 60 s each,
+# the raw episodes: narration val 1-2 and dialog val 197-198, 60 s each,
 # 25 fps at 240x136 (above the 180x100 target), 44.1 kHz PCM in an .avi
-PREP_EPISODES = {"narration": (1, 2, 3, 4), "dialog": (197, 198, 199, 200)}
+PREP_EPISODES = {"narration": (1, 2), "dialog": (197, 198)}
 PREP_SECONDS, PREP_FPS, PREP_SIZE, PREP_RATE = 60.0, 25, (240, 136), 44100
 PREP_PARTS = 3  # parts per episode, 4 lines each
 # a subtitle line's length (s): one short (the 2 s bucket with its 1 s of
@@ -4619,7 +4901,7 @@ PREP_LINES = ((0.6, 0.9),) + ((1.5, 3.5),) * 5 + ((9.0, 14.0),) \
 # word pair per tag (NOUN, VERB, ADJ), each word in a sixth of the
 # narration lines (dealt from a shuffled deck), the rest words the tagger
 # puts under no tag of the eval sets (X, AUX, ADV), so that each set
-# holds about eight minimal pairs
+# holds a few minimal pairs
 PREP_SLOTS = (("peppa", "george", "she", "she", "he", "he"),
               ("jumps", "runs", "is", "is", "is", "is"),
               ("big", "little", "really", "really", "very", "very"))
@@ -5140,6 +5422,311 @@ def run_prep(report: dict, card: str, root: str) -> None:
     print(f"prep: seconds per step {stats['steps_s']} ({card})")
 
 
+# ------------------------------------------------------------------ phase 9
+# the production soak recipe with only these keys changed: no wav2vec2 file
+# in the repository (audio.pretrained), and a schedule cut to 16 optimizer
+# steps (64 micro-steps at k = 4), validated every 32 micro-steps and
+# logged every 4 (its optimizer keys as they are: t_total 15000)
+SOAK_RECIPE = os.path.join("scripts", "hparams_soak_production.yaml")
+SOAK_STEPS, SOAK_VAL_EVERY, SOAK_LOG_EVERY = 16, 32, 4
+SOAK_TRAIN_CLIPS = 256  # --synthetic_train: 16 micro-batches of 16 an epoch
+SOAK_SIGNAL = "SIGUSR1"  # one of the recipe's tpu.preempt_signals
+SOAK_TIMEOUT = 600  # seconds an attempt may take
+
+
+def _has_val_row(metrics_csv: str) -> bool:
+    import csv
+
+    try:
+        with open(metrics_csv, newline="") as f:
+            return any(r.get("valnarr_triplet") for r in csv.DictReader(f))
+    except (OSError, csv.Error):
+        return False
+
+
+def soak_child(argv) -> int:
+    """An attempt of phase 9 (`chip_smoke.py --soak_child` + the run CLI's
+    arguments, as `soak_run` passes them): `peppa_tpu_torch.run.main` in
+    this process, its pid in `log_dir/child.pid` for the phase's
+    preemption, the kernels' launches and the micro-steps taken counted,
+    plain versions on the card counted, then each kernel against its plain
+    version on the first inputs of each shape the run gave it; the record
+    goes to `log_dir/child-N.json` (N: the attempt); returns the run's
+    exit code."""
+    import glob
+    import json
+
+    sys.path.insert(0, HERE)
+    import torch
+
+    from peppa_tpu_torch import run
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.ops import loss as loss_op
+    from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.training import loop
+
+    log_dir = argv[argv.index("--log_dir") + 1]
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "child.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    record = {"plain": 0, "micro_steps": 0}
+    inputs: dict = {}
+
+    def counted(real):
+        def step(*args, **kw):
+            record["micro_steps"] += 1
+            return real(*args, **kw)
+        return step
+
+    modules = {"attention": attention, "loss": loss}
+    undo = [_patch(wav2vec2, "mha_attention",
+                   _kept_inputs(inputs, "attention")),
+            _patch(loss_op, "fused_triplet_loss",
+                   _kept_inputs(inputs, "triplet_loss")),
+            _patch(loop, "train_step", counted)]
+    undo += [_patch(modules[m], name, _count_on_card(record))
+             for m, name in PLAIN_VERSIONS]
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = run.main(argv)
+    finally:
+        for u in undo:
+            u()
+    record.update(rc=rc, seconds=time.perf_counter() - t0,
+                  launches=_counts(), resumed="--auto_resume" in argv,
+                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    held: dict = {}
+    _hold_path_shapes(held, inputs, "soak_shapes", each=False)
+    record["held"] = held
+    n = len(glob.glob(os.path.join(log_dir, "child-*.json"))) + 1
+    with open(os.path.join(log_dir, f"child-{n}.json"), "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def _soak_kernel_times() -> dict:
+    """Kernels 1 and 3 at the soak's shapes (2.3 s clips at 8 kHz: T=57 in
+    the transformer): kernel 1 at the validation's B=8, bf16, no lengths,
+    back-to-back and graph-replayed beside its plain version, SDPA and its
+    bound; kernel 3 at the micro-step's B=16 with its gradient through
+    autograd and at the validation's B=8 alone (`loss_times`), beside its
+    plain versions and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from peppa_tpu_torch.models.wav2vec2 import conv_output_length
+    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
+                                                    mha_attention_plain)
+    from peppa_tpu_torch.ops.cuda.loss import (
+        fused_triplet_loss_and_grad_plain, fused_triplet_loss_plain)
+
+    b, h, hd = 8, 12, 64
+    t = int(conv_output_length(torch.tensor(round(2.3 * 8000))))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(b, t, h, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bms, by = bound(4 * b * t * h * hd * 2, 4 * b * h * t * t * hd,
+                    "bfloat16")
+    attn = {"B": b, "T": t, "dtype": "bfloat16",
+            "ms": time_ms(lambda: mha_attention(q, k, v)),
+            "device_ms": graph_ms(lambda: mha_attention(q, k, v)),
+            "plain_ms": time_ms(lambda: mha_attention_plain(q, k, v),
+                                iters=5),
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            "bound_ms": bms, "bound_by": by}
+    rows = {"attention_fwd": attn}
+    d = 512
+    for bb, grad in ((16, True), (8, False)):
+        gen = torch.Generator(device="cuda").manual_seed(bb)
+        va = [torch.randn(bb, d, generator=gen, device="cuda")
+              for _ in range(2)]
+        row = loss_times(bb, d)
+        plain = (fused_triplet_loss_and_grad_plain if grad
+                 else fused_triplet_loss_plain)
+        row["plain_ms"] = time_ms(lambda: plain(*va, 0.2))
+        row["bound_ms"], row["bound_by"] = (
+            bound(4 * bb * d * 4 + 4, 6 * bb * bb * d, "float32") if grad
+            else bound(2 * bb * d * 4 + 4, 2 * bb * bb * d, "float32"))
+        rows[f"triplet_loss_B{bb}" + ("_grad" if grad else "")] = row
+    for name, row in rows.items():
+        print(f"9 soak shapes: {name} {row}")
+    return rows
+
+
+def run_soak(report: dict, card: str, root: str) -> None:
+    """The soak path on the production soak recipe at full width
+    (wav2vec2-base, R(2+1)D-18, B = 16 x accumulate 4, 64x48 video, 8 kHz
+    audio, bf16 BatchNorm, dropout 0.1: attention on the plain route, the
+    loss kernel in every micro-step and kernels 1 and 3 in validation) on
+    synthetic clips: `peppa_tpu_torch.soak_run.soak` drives `python -m
+    peppa_tpu_torch.run`'s main in `--soak_child` processes; after the
+    first attempt's first validation row the phase sends it SOAK_SIGNAL,
+    so it writes preempted.ckpt and exits 75, and the second attempt
+    resumes with `--auto_resume` and runs to the end of the schedule.
+    Then `peppa_tpu_torch.soak_report` over the chain (exit 0); the
+    attempts and their exit codes, micro-steps, clips/s, peak memory,
+    launches (none of kernel 2, none of a plain version on the card), and
+    each kernel against its plain version on every attempt's shapes."""
+    import contextlib
+    import csv
+    import glob
+    import io
+    import signal
+    import threading
+
+    import yaml
+
+    from peppa_tpu_torch import soak_report
+    from peppa_tpu_torch.soak_run import soak
+
+    with open(os.path.join(HERE, SOAK_RECIPE)) as f:
+        raw = yaml.safe_load(f)
+    if SOAK_SIGNAL not in raw["tpu"]["preempt_signals"]:
+        raise AssertionError(f"{SOAK_SIGNAL} is not a preemption signal "
+                             "of the recipe")
+    raw["audio"]["pretrained"] = False
+    raw["training"].update(max_steps=SOAK_STEPS,
+                           val_check_interval=SOAK_VAL_EVERY,
+                           log_every_n_steps=SOAK_LOG_EVERY)
+    accum = raw["training"]["trainer_args"]["accumulate_grad_batches"]
+    work = os.path.join(root, "soak")
+    os.makedirs(work)
+    config_file = os.path.join(work, "soak.yaml")
+    with open(config_file, "w") as f:
+        yaml.safe_dump(raw, f)
+    log_dir = os.path.join(work, "logs")
+
+    stop, sent = threading.Event(), {}
+
+    def preempt() -> None:
+        first = os.path.join(log_dir, "version_0", "metrics.csv")
+        while not stop.wait(0.2):
+            if _has_val_row(first):
+                with open(os.path.join(log_dir, "child.pid")) as f:
+                    pid = int(f.read())
+                os.kill(pid, getattr(signal, SOAK_SIGNAL))
+                sent.update(pid=pid, at_s=time.perf_counter() - t0)
+                return
+
+    watcher = threading.Thread(target=preempt, daemon=True)
+    t0 = time.perf_counter()
+    watcher.start()
+    try:
+        rc, attempts = soak(
+            config_file, log_dir,
+            ["--synthetic_data", "--synthetic_train", str(SOAK_TRAIN_CLIPS)],
+            command=[sys.executable, os.path.abspath(__file__),
+                     "--soak_child"],
+            pause=30.0, max_attempts=2, timeout=SOAK_TIMEOUT)
+    finally:
+        stop.set()
+        watcher.join()
+    seconds = time.perf_counter() - t0
+    codes = [a[1] for a in attempts]
+    print(f"9 soak: attempts {codes} in {seconds:.1f} s; {SOAK_SIGNAL} to "
+          f"pid {sent.get('pid')} at {sent.get('at_s', 0):.1f} s; the second "
+          f"attempt's arguments {attempts[-1][0][3:]}")
+    if rc != 0 or codes != [75, 0] or "--auto_resume" not in attempts[1][0]:
+        raise AssertionError(f"soak attempts {codes}: {attempts}")
+    runs = sorted(glob.glob(os.path.join(log_dir, "version_*")))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report_rc = soak_report.main(runs)
+    print(out.getvalue().rstrip())
+    print(f"9 soak: soak_report over {len(runs)} runs exited {report_rc}")
+    if report_rc != 0 or len(runs) != 2:
+        raise AssertionError(f"soak_report {report_rc} over {runs}")
+
+    records = []
+    for n in (1, 2):
+        with open(os.path.join(log_dir, f"child-{n}.json")) as f:
+            records.append(json.load(f))
+    rows = []
+    for n, (rec, run_dir) in enumerate(zip(records, runs), 1):
+        with open(os.path.join(run_dir, "metrics.csv"), newline="") as f:
+            train = [r for r in csv.DictReader(f) if r.get("train_loss")]
+        ips = float(train[-1]["perf/items_per_sec"])
+        launches = rec["launches"]
+        print(f"9 soak attempt {n}: exit {rec['rc']}, {rec['micro_steps']} "
+              f"micro-steps to step {train[-1]['step']} in "
+              f"{rec['seconds']:.1f} s, {ips:.2f} clips/s (the run's "
+              f"StepTimer), peak memory {rec['peak_memory_gib']:.2f} GiB; "
+              f"launches {launches}; plain versions on the card "
+              f"{rec['plain']} ({card})")
+        evals = launches["triplet_loss"] - rec["micro_steps"]
+        if (launches["attention_bwd"] or rec["plain"] or evals <= 0
+                or launches["attention_fwd"] != DP_LAYERS * evals):
+            raise AssertionError(f"soak attempt {n}: launches {launches}, "
+                                 f"{rec['micro_steps']} micro-steps, plain "
+                                 f"{rec['plain']}")
+        report["launches"][f"soak_{n}"] = launches
+        for kernel, held in rec["held"].items():
+            mine = report.setdefault(kernel, {"max_abs_err": 0.0})
+            mine[f"soak_{n}_shapes"] = held["soak_shapes"]
+            mine["max_abs_err"] = max(mine["max_abs_err"],
+                                      held["max_abs_err"])
+        rows.append({"exit": rec["rc"], "micro_steps": rec["micro_steps"],
+                     "seconds": rec["seconds"], "clips_per_s": ips,
+                     "peak_memory_gib": rec["peak_memory_gib"],
+                     "launches": launches})
+    total = sum(r["micro_steps"] for r in rows)
+    if total != SOAK_STEPS * accum:
+        raise AssertionError(f"soak micro-steps {total} != "
+                             f"{SOAK_STEPS * accum}")
+    report["soak"] = {"recipe": SOAK_RECIPE, "attempts": rows,
+                      "seconds": seconds, "soak_report_exit": report_rc,
+                      "signal": SOAK_SIGNAL,
+                      "kernel_times": _soak_kernel_times()}
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def first_step() -> int:
+    """`chip_smoke.py --first_step`: a fresh process's first micro-steps
+    (phase 4a's configuration: bf16, `audio.dropout: 0.0`, full width and
+    depth, B=8 of 2.3 s): the seconds to import the port's training
+    modules, to load the built kernels, to build the seeded model on the
+    card, and of each of the first two micro-steps (each to a synchronise
+    and a fetch of its loss); one JSON line.  Run it from a tree whose
+    kernels are built (`python3 chip_smoke.py --phases 2` builds them)."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    from peppa_tpu_torch.config import default_config
+    from peppa_tpu_torch.models.dual_encoder import init_model
+    from peppa_tpu_torch.ops.cuda import build
+    from peppa_tpu_torch.training.state import TrainState
+    from peppa_tpu_torch.training.step import train_step
+
+    out = {"import_s": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    build.build_all()
+    out["kernels_s"] = time.perf_counter() - t1
+    cfg = default_config()
+    cfg.audio.dropout = 0.0
+    rng = np.random.default_rng(2)
+    batches = [_clip_batch(rng, cfg, TRAIN_B, TRAIN_SECONDS)
+               for _ in range(2)]
+    t1 = time.perf_counter()
+    state = TrainState.create(init_model(cfg, seed=0), cfg)
+    torch.cuda.synchronize()
+    out["model_s"] = time.perf_counter() - t1
+    for i, batch in enumerate(batches):
+        t1 = time.perf_counter()
+        state, m = train_step(state, batch, seed=0)
+        m["train_loss"].item()
+        torch.cuda.synchronize()
+        out[f"micro_step_{i + 1}_s"] = time.perf_counter() - t1
+    out["dynamo_imported"] = "torch._dynamo" in sys.modules
+    out["tree"] = HERE
+    print(json.dumps(out))
+    return 0
+
+
 # ------------------------------------------------------------------ phase 5
 def card_vs_cpu() -> None:
     import numpy as np
@@ -5250,8 +5837,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
                         choices=("2", "3", "3q", "3x", "4a", "4b", "4e", "4p",
-                                 "4t", "4r", "4s", "4c", "4d", "6", "7", "8",
-                                 "5"),
+                                 "4t", "4r", "4s", "4c", "4d", "6q", "6", "7",
+                                 "8", "9", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -5277,7 +5864,7 @@ def main() -> int:
     phases = (("2", lambda: (print_kernel_resources(),
                              check_attention(report),
                              check_attention_bwd(report),
-                             check_loss(report))),
+                             check_loss(report), check_ops(report))),
               ("3", lambda: run_slice(report, card)),
               ("3q", lambda: run_slice_int8(report, card, root)),
               ("3x", lambda: run_export(report, card, root)),
@@ -5290,15 +5877,20 @@ def main() -> int:
               ("4s", lambda: run_ablation_sweep(report, card, root)),
               ("4c", lambda: run_trainer(report, card)),
               ("4d", lambda: run_pipeline(report, card, root)),
+              ("6q", lambda: run_quant_quality(report, card, root)),
               ("6", lambda: run_evaluation(report, card, root)),
               ("7", lambda: run_results(report, card, root)),
               ("8", lambda: run_prep(report, card, root)),
+              ("9", lambda: run_soak(report, card, root)),
               ("5", run_card_vs_cpu))
     chosen = set(args.phases or [p for p, _ in phases])
     if "7" in chosen and "6" not in chosen:
         print("phase 7 reads phase 6's run directories and score files: "
               "phase 6 runs too")
         chosen.add("6")
+    if "6q" in chosen and "4d" not in chosen:
+        print("phase 6q reads phase 4d's run directory: phase 4d runs too")
+        chosen.add("4d")
     report: dict = {"launches": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_data_")  # 4d's tree, for 6
     try:
@@ -5316,8 +5908,9 @@ def main() -> int:
         print(json.dumps({k: v for k, v in report.items()
                           if k in ("launches", "evaluation", "results",
                                    "prep", "attention", "attention_bwd",
-                                   "serve_int8", "export", "train_dp",
-                                   "tensor_parallel", "remat", "sweep",
+                                   "triplet_loss", "serve_int8", "export",
+                                   "train_dp", "tensor_parallel", "remat",
+                                   "sweep", "ops", "quant_quality", "soak",
                                    *TRAIN_TAGS.values())},
                          default=str))
         print(card)
@@ -5358,6 +5951,8 @@ def main() -> int:
                       "remat": report["remat"], "sweep": report["sweep"],
                       "trainer": report["trainer"],
                       "pipeline": report["pipeline"],
+                      "quant_quality": report["quant_quality"],
+                      "soak": report["soak"], "ops": report["ops"],
                       "evaluation": report["evaluation"],
                       "results": report["results"],
                       "prep": report["prep"],
@@ -5376,4 +5971,8 @@ if __name__ == "__main__":
         sys.exit(dp_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp_rank"]:  # a rank of phase 4t
         sys.exit(tp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--soak_child"]:  # an attempt of phase 9
+        sys.exit(soak_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--first_step"]:  # a fresh process's micro-steps
+        sys.exit(first_step())
     sys.exit(main())

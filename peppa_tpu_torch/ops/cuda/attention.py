@@ -37,19 +37,30 @@ units; its tiles are XOR-swizzled in shared memory instead of padded, so
 two blocks fit on an SM.
 
 `mha_attention` takes (B, T, H, hd) q/k/v in float32 or bfloat16 and returns
-the same layout in q's dtype.  When autograd needs its gradient it runs as a
-`torch.autograd.Function` whose forward also keeps the log-sum-exp and the
-output, and whose backward is the backward kernel; otherwise (serving,
-`inference_mode`) it is the forward kernel alone, through the custom op
-`torch.ops.peppa_tpu_torch.mha_attention` (q, k, v, lengths, scale): its
-CPU kernel is the plain version, its CUDA kernel the forward kernel, and
-its fake version gives the output's shape and strides, so that
-`torch.export` keeps one opaque node per call that dispatches by device
-when the program runs (`peppa_tpu_torch/export.py`).  Importing this
-module registers the op (`torch.library`); it imports only torch and
-ctypes.  On CPU
-tensors both directions run the plain versions; on CUDA tensors they
-launch the kernels or raise.
+the same layout in q's dtype.  It reaches the kernels through three
+dispatcher ops (`torch.library`), each with a CPU kernel (the plain
+version), a CUDA kernel (the kernel's launch) and a fake version (the
+outputs' shapes and strides), so that `torch.export` and `torch.compile`
+keep one opaque node per call that dispatches by device when it runs:
+
+- `torch.ops.peppa_tpu_torch.mha_attention` (q, k, v, lengths, scale) ->
+  out: the forward alone, without a gradient (serving, `inference_mode`;
+  the exported programs of `peppa_tpu_torch/export.py` call it by this
+  name);
+- `mha_attention_train` (q, k, v, lengths, scale) -> (out, lse): the
+  forward that also writes the float32 (B, H, T) log-sum-exp the backward
+  reads, in natural-log units for float32 and log2 units for bfloat16 (of
+  the scores times scale * log2(e)), on both devices; its autograd
+  (`torch.library.register_autograd`) saves q, k, v, lengths, out and lse
+  and calls
+- `mha_attention_bwd` (q, k, v, dO, lengths, scale, lse, out) -> (dq, dk,
+  dv): the backward kernel (the plain version on the CPU, which recomputes
+  P and ignores lse and out).
+
+`mha_attention` under autograd calls `mha_attention_train`, else
+`mha_attention`.  Importing this module registers the ops; it imports only
+torch and ctypes.  On CPU tensors the ops run the plain versions; on CUDA
+tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ from typing import List, Optional, Tuple
 import torch
 
 NEG_INF = -1e30  # masked-key score, as the TPU kernel's
+LOG2E = 1.4426950408889634  # the bf16 kernels' log-sum-exp is in log2 units
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 # the float32 forward: query rows (and keys) per tile, as `kF32Rows` and
@@ -74,20 +86,48 @@ _F32_BLOCKS = 4 * 132
 _count_lock = threading.Lock()
 
 
+def _masked_logits(q: torch.Tensor, k: torch.Tensor,
+                   lengths: Optional[torch.Tensor], scale: float):
+    """(float32 (B, H, T, T) scores scale * q k^T with keys >= lengths[b]
+    at -1e30, the (B, T) key mask or None)."""
+    t = q.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    mask = None
+    if lengths is not None:
+        mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    return logits, mask
+
+
 def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lengths: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
     """softmax(scale * q k^T, keys >= lengths[b] at -1e30) v in float32."""
-    b, t, h, hd = q.shape
     if scale is None:
-        scale = hd ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    if lengths is not None:
-        mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
-        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+        scale = q.shape[-1] ** -0.5
+    probs = torch.softmax(_masked_logits(q, k, lengths, scale)[0], dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(q.dtype)
+
+
+def mha_attention_train_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              lengths: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(`mha_attention_plain`'s output, the float32 (B, H, T) log-sum-exp of
+    the masked scaled scores in the forward kernel's units: natural-log for
+    float32, log2 (times log2(e)) for bfloat16).  A row of length 0 gives
+    -1e30 (times log2(e)), as the kernels write it."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = _masked_logits(q, k, lengths, scale)[0]
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1),
+                       v.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    if q.dtype == torch.bfloat16:
+        lse = lse * LOG2E
+    return out.to(q.dtype), lse
 
 
 def mha_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,15 +146,10 @@ def mha_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dK = dV = 0.  A row of length 0 scores every key at the constant -1e30:
     P is uniform over T and dS = 0, so dQ = dK = 0 and dV averages dO.
     """
-    b, t, h, hd = q.shape
     if scale is None:
-        scale = hd ** -0.5
+        scale = q.shape[-1] ** -0.5
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    logits = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf)
-    mask = None
-    if lengths is not None:
-        mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
-        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    logits, mask = _masked_logits(q, k, lengths, scale)
     p = torch.softmax(logits, dim=-1)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -280,10 +315,12 @@ def mha_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lse: Optional[torch.Tensor] = None,
                       out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in q's dtype.  CPU tensors: the plain version, which
-    ignores `lse` and `out`; CUDA tensors: the backward kernel, which needs
-    the forward kernel's log-sum-exp `lse` and output `out` of the same q,
-    k, v, lengths and scale (`_launch(..., with_lse=True)`)."""
+    """(dq, dk, dv) in q's dtype, called directly (the kernel checks and
+    timings; autograd calls `attention_bwd_op`).  CPU tensors: the plain
+    version, which ignores `lse` and `out`; CUDA tensors: the backward
+    kernel, which needs the forward kernel's log-sum-exp `lse` and output
+    `out` of the same q, k, v, lengths and scale (`_launch(...,
+    with_lse=True)`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _device_of(q) == "cpu":
@@ -294,38 +331,19 @@ def mha_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 mha_attention_bwd.launches = 0  # kernel launches (CPU calls do not count)
 
 
-class _Attention(torch.autograd.Function):
-    """`mha_attention` under autograd: the forward keeps q, k, v, lengths,
-    its output and (on the card) the log-sum-exp; the backward is the
-    backward kernel (the plain version on the CPU)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, lengths, scale):
-        if q.device.type == "cpu":
-            out, lse = mha_attention_plain(q, k, v, lengths, scale), None
-        else:
-            out, lse = _launch(q, k, v, lengths, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, lengths, lse, out)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, lengths, lse, out = ctx.saved_tensors
-        dq, dk, dv = mha_attention_bwd(q, k, v, do, lengths, ctx.scale, lse,
-                                       out)
-        return dq, dk, dv, None, None
-
-
-# The attention forward as one dispatcher op, without a gradient: the plain
-# version on CPU tensors, the forward kernel on CUDA tensors, and a fake
-# version for tracing.  Registered through `torch.library.Library`, whose
-# kernels the dispatcher calls as they are: `torch.library.custom_op` wraps
-# each kernel so that its first call imports `torch._dynamo`, seconds of
-# every process's first request.
+# The dispatcher ops (module doc).  Registered through
+# `torch.library.Library`, whose kernels the dispatcher calls as they are:
+# `torch.library.custom_op` wraps each kernel so that its first call imports
+# `torch._dynamo`, seconds of every process's first request.  A CPU kernel
+# returns contiguous tensors, as the CUDA kernel and the fake do.
 _LIBRARY = torch.library.Library("peppa_tpu_torch", "DEF")
 _LIBRARY.define("mha_attention(Tensor q, Tensor k, Tensor v, Tensor? lengths, "
                 "float scale) -> Tensor")
+_LIBRARY.define("mha_attention_train(Tensor q, Tensor k, Tensor v, "
+                "Tensor? lengths, float scale) -> (Tensor, Tensor)")
+_LIBRARY.define("mha_attention_bwd(Tensor q, Tensor k, Tensor v, "
+                "Tensor grad_out, Tensor? lengths, float scale, Tensor lse, "
+                "Tensor out) -> (Tensor, Tensor, Tensor)")
 
 
 def _attention_op_cpu(q, k, v, lengths, scale):
@@ -340,11 +358,70 @@ def _attention_op_fake(q, k, v, lengths, scale):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
-_LIBRARY.impl("mha_attention", _attention_op_cpu, "CPU")
-_LIBRARY.impl("mha_attention", _attention_op_cuda, "CUDA")
-torch.library.register_fake("peppa_tpu_torch::mha_attention",
-                            _attention_op_fake, lib=_LIBRARY)
+def _train_op_cpu(q, k, v, lengths, scale):
+    out, lse = mha_attention_train_plain(q, k, v, lengths, scale)
+    return out.contiguous(), lse.contiguous()
+
+
+def _train_op_cuda(q, k, v, lengths, scale):
+    return _launch(q, k, v, lengths, scale, with_lse=True)
+
+
+def _train_op_fake(q, k, v, lengths, scale):
+    b, t, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, t), dtype=torch.float32))
+
+
+def _bwd_op_cpu(q, k, v, grad_out, lengths, scale, lse, out):
+    return tuple(g.contiguous() for g in mha_attention_bwd_plain(
+        q, k, v, grad_out, lengths, scale))
+
+
+def _bwd_op_cuda(q, k, v, grad_out, lengths, scale, lse, out):
+    return _launch_bwd(q, k, v, grad_out, lse, out, lengths, scale)
+
+
+def _bwd_op_fake(q, k, v, grad_out, lengths, scale, lse, out):
+    return tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                 for _ in range(3))
+
+
+def _train_setup_context(ctx, inputs, output):
+    q, k, v, lengths, scale = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)  # no zeros for the lse's gradient
+    ctx.save_for_backward(q, k, v, lengths, lse, out)
+    ctx.scale = scale
+
+
+def _train_backward(ctx, grad_out, _grad_lse):
+    if grad_out is None:  # the output fed nothing that was differentiated
+        return None, None, None, None, None
+    q, k, v, lengths, lse, out = ctx.saved_tensors
+    dq, dk, dv = attention_bwd_op(q, k, v, grad_out, lengths, ctx.scale, lse,
+                                  out)
+    return dq, dk, dv, None, None
+
+
+for _name, _cpu, _cuda, _fake in (
+        ("mha_attention", _attention_op_cpu, _attention_op_cuda,
+         _attention_op_fake),
+        ("mha_attention_train", _train_op_cpu, _train_op_cuda,
+         _train_op_fake),
+        ("mha_attention_bwd", _bwd_op_cpu, _bwd_op_cuda, _bwd_op_fake)):
+    _LIBRARY.impl(_name, _cpu, "CPU")
+    _LIBRARY.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"peppa_tpu_torch::{_name}", _fake,
+                                lib=_LIBRARY)
+torch.library.register_autograd("peppa_tpu_torch::mha_attention_train",
+                                _train_backward,
+                                setup_context=_train_setup_context,
+                                lib=_LIBRARY)
 attention_op = torch.ops.peppa_tpu_torch.mha_attention.default
+attention_train_op = torch.ops.peppa_tpu_torch.mha_attention_train.default
+attention_bwd_op = torch.ops.peppa_tpu_torch.mha_attention_bwd.default
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -354,13 +431,14 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     `lengths` (B,) marks the valid keys of each example (>= 1; None: all
     T).  CPU tensors: the plain versions; CUDA tensors: the kernels.
-    Differentiable in q, k and v; without a gradient it is `attention_op`.
+    Differentiable in q, k and v through `attention_train_op`; without a
+    gradient it is `attention_op`.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     _device_of(q)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _Attention.apply(q, k, v, lengths, scale)
+        return attention_train_op(q, k, v, lengths, float(scale))[0]
     return attention_op(q, k, v, lengths, float(scale))
 
 

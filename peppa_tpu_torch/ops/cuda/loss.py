@@ -8,12 +8,16 @@ note gives its bound on an H100 and its design (one launch of one
 thread-block cluster up to B = 64, with the gradient in the same launch;
 a row pass, a tile pass and a gradient pass beyond).
 
-On CPU tensors `fused_triplet_loss` runs the plain version and, under
-autograd, the plain closed-form backward `triplet_loss_bwd`.  On CUDA
-tensors it launches the kernel or raises: without autograd for the loss
-alone; under autograd for the loss and its gradient (for an output gradient
-of 1) in the same launch, which the backward only scales by the output
-gradient.
+Under autograd `fused_triplet_loss` calls the dispatcher op
+`torch.ops.peppa_tpu_torch.fused_triplet_loss` (v, a, margin) -> (loss,
+dL/dV, dL/dA), the gradients float32 for an output gradient of 1: on CPU
+tensors the plain version (`fused_triplet_loss_and_grad_plain`), on CUDA
+tensors one launch of the kernel with its gradient; its fake gives the
+shapes, and its autograd (`torch.library.register_autograd`) only scales
+the saved gradients by the output gradient and casts them to v's and a's
+dtypes.  Without autograd it runs the plain loss on the CPU and the kernel
+without its gradient on the card.  On CUDA tensors it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -45,9 +49,9 @@ def fused_triplet_loss_plain(v: torch.Tensor, a: torch.Tensor,
     return torch.sum(c.masked_fill(eye, 0.0)) / (b * b)
 
 
-def triplet_loss_bwd(v: torch.Tensor, a: torch.Tensor, g, margin: float = 0.2
+def triplet_loss_bwd(v: torch.Tensor, a: torch.Tensor, margin: float = 0.2
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dv, da) of the fused loss for the output gradient `g`, in closed
+    """(dv, da) of the fused loss for an output gradient of 1, in closed
     form.  With N_v, N_a the row-normalised embeddings and M = N_v N_a^T:
 
       dL/dM[i,j] (i != j) = (1[col hinge ij > 0] + 1[row hinge ij > 0]) / B^2
@@ -68,7 +72,7 @@ def triplet_loss_bwd(v: torch.Tensor, a: torch.Tensor, g, margin: float = 0.2
     g_m = col.float() + row.float()
     g_m = g_m - torch.diag(col.sum(dim=0).float())
     g_m = g_m - torch.diag(row.sum(dim=1).float())
-    g_m = g_m * (g / (b * b))
+    g_m = g_m * (1.0 / (b * b))
     d_vn = g_m @ an
     d_an = g_m.T @ vn
     d_v = (d_vn - vn * torch.sum(d_vn * vn, dim=1, keepdim=True)) / nv
@@ -81,7 +85,7 @@ def fused_triplet_loss_and_grad_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, dL/dV, dL/dA) for an output gradient of 1: the plain version
     of the kernel's launch with the gradient."""
-    d_v, d_a = triplet_loss_bwd(v, a, 1.0, margin)
+    d_v, d_a = triplet_loss_bwd(v, a, margin)
     return fused_triplet_loss_plain(v, a, margin), d_v, d_a
 
 
@@ -107,8 +111,9 @@ def _launch(v: torch.Tensor, a: torch.Tensor, margin: float, grad: bool
                        Optional[torch.Tensor]]:
     """The kernel on (B, D) CUDA tensors of the current device: the loss (a
     0-d float32 tensor) and, with `grad`, dL/dV and dL/dA for an output
-    gradient of 1 ((B, D) float32), else None for both.  One allocation
-    holds the outputs (and, past B = 64, the kernel's scratch)."""
+    gradient of 1 ((B, D) float32, each its own tensor), else None for
+    both.  The loss and, past B = 64, the kernel's scratch share one
+    allocation."""
     if v.ndim != 2 or v.shape != a.shape or v.device != a.device:
         raise ValueError("v and a must be (B, D) on one device")
     b, d = v.shape
@@ -120,58 +125,80 @@ def _launch(v: torch.Tensor, a: torch.Tensor, margin: float, grad: bool
     v = v.float().contiguous()
     a = a.float().contiguous()
     fn, work = _kernel()
-    n_out = 2 * b * d + 1 if grad else 1  # [dV | dA |] loss
-    buf = torch.empty(n_out + work(b, int(grad)), dtype=torch.float32,
-                      device=v.device)
+    buf = torch.empty(1 + work(b, int(grad)), dtype=torch.float32,
+                      device=v.device)  # loss | scratch
+    d_v = d_a = None
+    if grad:
+        d_v, d_a = (torch.empty((b, d), dtype=torch.float32, device=v.device)
+                    for _ in range(2))
     base = buf.data_ptr()
-    err = fn(v.data_ptr(), a.data_ptr(), base + 4 * (n_out - 1),
-             base if grad else None, base + 4 * b * d if grad else None,
-             base + 4 * n_out, b, d, float(margin),
-             torch.cuda.current_stream(v.device).cuda_stream)
+    err = fn(v.data_ptr(), a.data_ptr(), base,
+             None if d_v is None else d_v.data_ptr(),
+             None if d_a is None else d_a.data_ptr(), base + 4, b, d,
+             float(margin), torch.cuda.current_stream(v.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"triplet-loss kernel launch failed: cudaError {err}")
     fused_triplet_loss.launches += 1
-    loss = buf[n_out - 1]
-    if not grad:
-        return loss, None, None
-    return loss, buf[:b * d].view(b, d), buf[b * d:2 * b * d].view(b, d)
+    return buf[0], d_v, d_a
 
 
-class _TripletLoss(torch.autograd.Function):
-    """The fused loss under autograd.  CUDA: the kernel's one launch gives
-    the loss and its gradient for an output gradient of 1; the backward
-    scales it.  CPU: the plain forward, then the plain closed form."""
+# The loss with its gradient as one dispatcher op (module doc), registered
+# through `torch.library.Library` as the attention ops are
+# (ops/cuda/attention.py); its CPU kernel computes in float32, as the CUDA
+# kernel reads its inputs.
+_LIBRARY = torch.library.Library("peppa_tpu_torch", "FRAGMENT")
+_LIBRARY.define("fused_triplet_loss(Tensor v, Tensor a, float margin) -> "
+                "(Tensor, Tensor, Tensor)")
 
-    @staticmethod
-    def forward(ctx, v, a, margin):
-        ctx.margin = margin
-        ctx.dtypes = (v.dtype, a.dtype)
-        if v.device.type == "cpu":
-            ctx.save_for_backward(v, a)
-            return fused_triplet_loss_plain(v, a, margin)
-        loss, d_v, d_a = _launch(v, a, margin, grad=True)
-        ctx.save_for_backward(d_v, d_a)
-        return loss
 
-    @staticmethod
-    def backward(ctx, g):
-        x, y = ctx.saved_tensors
-        if x.device.type == "cpu":  # x, y are v, a
-            d_v, d_a = triplet_loss_bwd(x, y, g, ctx.margin)
-            return d_v, d_a, None
-        # x, y are the kernel's dV, dA for g = 1
-        return (g * x).to(ctx.dtypes[0]), (g * y).to(ctx.dtypes[1]), None
+def _loss_op_cpu(v, a, margin):
+    return fused_triplet_loss_and_grad_plain(v.float(), a.float(), margin)
+
+
+def _loss_op_cuda(v, a, margin):
+    return _launch(v, a, margin, grad=True)
+
+
+def _loss_op_fake(v, a, margin):
+    return (v.new_empty((), dtype=torch.float32),
+            v.new_empty(v.shape, dtype=torch.float32),
+            a.new_empty(a.shape, dtype=torch.float32))
+
+
+def _loss_setup_context(ctx, inputs, output):
+    v, a, _ = inputs
+    _, d_v, d_a = output
+    ctx.mark_non_differentiable(d_v, d_a)
+    ctx.set_materialize_grads(False)  # no zeros for dV's and dA's gradients
+    ctx.save_for_backward(d_v, d_a)
+    ctx.dtypes = (v.dtype, a.dtype)
+
+
+def _loss_backward(ctx, g, _g_v, _g_a):
+    d_v, d_a = ctx.saved_tensors  # for an output gradient of 1
+    return (g * d_v).to(ctx.dtypes[0]), (g * d_a).to(ctx.dtypes[1]), None
+
+
+_LIBRARY.impl("fused_triplet_loss", _loss_op_cpu, "CPU")
+_LIBRARY.impl("fused_triplet_loss", _loss_op_cuda, "CUDA")
+torch.library.register_fake("peppa_tpu_torch::fused_triplet_loss",
+                            _loss_op_fake, lib=_LIBRARY)
+torch.library.register_autograd("peppa_tpu_torch::fused_triplet_loss",
+                                _loss_backward,
+                                setup_context=_loss_setup_context,
+                                lib=_LIBRARY)
+loss_op = torch.ops.peppa_tpu_torch.fused_triplet_loss.default
 
 
 def fused_triplet_loss(v: torch.Tensor, a: torch.Tensor,
                        margin: float = 0.2) -> torch.Tensor:
     """contrastive(cosine_matrix(v, a), margin) as one fused computation;
-    a float32 scalar, differentiable in v and a.  CPU tensors: the plain
-    version; CUDA: the kernel."""
+    a float32 scalar, differentiable in v and a (through `loss_op`).  CPU
+    tensors: the plain version; CUDA: the kernel."""
     if v.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no triplet-loss kernel for device {v.device}")
     if torch.is_grad_enabled() and (v.requires_grad or a.requires_grad):
-        return _TripletLoss.apply(v, a, margin)
+        return loss_op(v, a, float(margin))[0]
     if v.device.type == "cpu":
         return fused_triplet_loss_plain(v, a, margin)
     return _launch(v, a, margin, grad=False)[0]

@@ -29,7 +29,9 @@ leaked = sorted(m for m in sys.modules
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 30, names
-assert "peppa_tpu_torch.ablation_sweep" in names, names
+for module in ("ablation_sweep", "soak_run", "soak_report",
+               "quant_quality"):
+    assert "peppa_tpu_torch." + module in names, names
 """
 
 

@@ -31,6 +31,7 @@ against the JAX package's `peppa_tpu/ops/quant.py` and
 """
 
 import copy
+import functools
 import os
 
 import jax
@@ -141,11 +142,16 @@ def test_quant_flag_keeps_param_tree_identical():
     raw = {**RAW, "audio": {"num_layers": 1}}
     jm = JaxPeppaPig(JaxConfig.from_dict(raw))
     video = jnp.zeros((1, 3, 24, 32, 3), jnp.float32)
-    variables = jax.tree.map(np.asarray, jm.init(
-        jax.random.PRNGKey(0), video, method=jm.encode_video))
-    audio_vars = jax.tree.map(np.asarray, jm.init(
-        jax.random.PRNGKey(1), jnp.zeros((1, 1600), jnp.float32),
-        method=jm.encode_audio))
+
+    def tree(method, key, x):
+        """The variables `jm.init` makes, as zeros of their shapes and
+        dtypes (traced, not run: the eager init takes a minute here)."""
+        shapes = jax.eval_shape(functools.partial(jm.init, method=method),
+                                jax.random.PRNGKey(key), x)
+        return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+    variables = tree(jm.encode_video, 0, video)
+    audio_vars = tree(jm.encode_audio, 1, jnp.zeros((1, 1600), jnp.float32))
     variables["params"].update(audio_vars["params"])
     port = PeppaPig(Config.from_dict(raw))
     load_jax_variables(port, variables)
@@ -233,21 +239,41 @@ def _inputs(x_shape, w_shape, dtype, seed=0):
     return x.to(dtype), w
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_conv(case, dtype):
+    """The JAX package's `int8_conv` on the case's inputs, in the port's
+    layout as float32 (the plain and card-route cases share it)."""
+    x_shape, w_shape, stride, padding = CONV_CASES[case]
+    tdt, jdt = DTYPES[dtype]
+    x, w = _inputs(x_shape, w_shape, tdt)
+    jx = jnp.asarray(x.float().numpy()).astype(jdt)
+    jx = jnp.moveaxis(jx, 1, -1)  # channels last
+    jw = jnp.asarray(np.moveaxis(w, (0, 1), (-1, -2)))  # (*k, C, O)
+    want = jax_quant.int8_conv(jx, jw, stride, [(p, p) for p in padding],
+                               _JAX_DN[len(stride)], out_dtype=jdt)
+    return torch.from_numpy(np.moveaxis(
+        np.asarray(want.astype(jnp.float32)), -1, 1).copy())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_matmul(case, dtype):
+    """The JAX package's `int8_matmul` on the case's inputs, as float32."""
+    x_shape, n = MATMUL_CASES[case]
+    tdt, jdt = DTYPES[dtype]
+    x, w = _inputs(x_shape, (n, x_shape[-1]), tdt, seed=1)
+    return _t(jax_quant.int8_matmul(
+        jnp.asarray(x.float().numpy()).astype(jdt), jnp.asarray(w.T),
+        out_dtype=jdt).astype(jnp.float32))
+
+
 @pytest.mark.parametrize("route", ["plain", "card_route"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", list(CONV_CASES))
 def test_int8_conv_matches_jax_bit_for_bit(monkeypatch, case, dtype, route):
     x_shape, w_shape, stride, padding = CONV_CASES[case]
-    tdt, jdt = DTYPES[dtype]
+    tdt, _ = DTYPES[dtype]
     x, w = _inputs(x_shape, w_shape, tdt)
-    nd = len(stride)
-    jx = jnp.asarray(x.float().numpy()).astype(jdt)
-    jx = jnp.moveaxis(jx, 1, -1)  # channels last
-    jw = jnp.asarray(np.moveaxis(w, (0, 1), (-1, -2)))  # (*k, C, O)
-    want = jax_quant.int8_conv(jx, jw, stride, [(p, p) for p in padding],
-                               _JAX_DN[nd], out_dtype=jdt)
-    want = torch.from_numpy(np.moveaxis(
-        np.asarray(want.astype(jnp.float32)), -1, 1).copy())
+    want = _jax_conv(case, dtype)
     _route(monkeypatch, route)
     before = quant.int8_conv.calls
     got = quant.int8_conv(x, torch.from_numpy(w), stride, padding, tdt)
@@ -262,12 +288,9 @@ def test_int8_conv_matches_jax_bit_for_bit(monkeypatch, case, dtype, route):
 def test_int8_matmul_matches_jax_bit_for_bit(monkeypatch, case, dtype,
                                              route):
     x_shape, n = MATMUL_CASES[case]
-    tdt, jdt = DTYPES[dtype]
+    tdt, _ = DTYPES[dtype]
     x, w = _inputs(x_shape, (n, x_shape[-1]), tdt, seed=1)
-    want = jax_quant.int8_matmul(
-        jnp.asarray(x.float().numpy()).astype(jdt), jnp.asarray(w.T),
-        out_dtype=jdt)
-    want = _t(want.astype(jnp.float32))
+    want = _jax_matmul(case, dtype)
     _route(monkeypatch, route)
     before = quant.int8_matmul.calls
     got = quant.int8_matmul(x, torch.from_numpy(w), tdt)
@@ -293,13 +316,40 @@ def test_card_route_accumulator_equals_plain(case):
 
 # ------------------------------------------------------------ the towers
 
-def _tower_models(tower, seed):
+_SEED0_PORTS = {}
+
+
+def _port_tower(tower, seed):
+    """The port's model of `tower` with seeded weights; seed 0's is built
+    once (the coverage test and the tower test both read it)."""
+    if seed == 0 and tower in _SEED0_PORTS:
+        return _SEED0_PORTS[tower]
     raw = {**RAW, "video": TOWERS[tower]}
     port = _random(PeppaPig(Config.from_dict(raw)), seed=seed)
-    variables = export_jax_variables(port)
-    jq = JaxPeppaPig(JaxConfig.from_dict(raw))
-    jf = JaxPeppaPig(JaxConfig.from_dict({**raw, "tpu": {}}))
-    return port, variables, jq, jf
+    if seed == 0:
+        _SEED0_PORTS[tower] = port
+    return port
+
+
+_JAX_RUNS = {}
+
+
+def _jax_run(tower, seed, port):
+    """The JAX package's forwards of `tower` on `port`'s weights (the
+    seed's): (its int8 calls in order, each (kind, input, output), the int8
+    embedding, the float embedding); computed once per (tower, seed), so
+    the coverage test and the tower test's seed 0 share them."""
+    if (tower, seed) not in _JAX_RUNS:
+        raw = {**RAW, "video": TOWERS[tower]}
+        variables = export_jax_variables(port)
+        jq = JaxPeppaPig(JaxConfig.from_dict(raw))
+        jf = JaxPeppaPig(JaxConfig.from_dict({**raw, "tpu": {}}))
+        with pytest.MonkeyPatch.context() as mp:
+            calls = _record_jax(mp)
+            want = _encode_jax(jq, variables, tower, seed)
+        _JAX_RUNS[tower, seed] = (calls, want,
+                                  _encode_jax(jf, variables, tower, seed))
+    return _JAX_RUNS[tower, seed]
 
 
 def _tower_inputs(seed):
@@ -393,9 +443,8 @@ def _feed_jax_inputs(monkeypatch, calls):
 def test_int8_products_cover_the_jax_layers(monkeypatch, tower):
     """One eval forward runs as many int8 products as the JAX package's,
     read from the counters that `chip_smoke.py` reads."""
-    port, variables, jq, _ = _tower_models(tower, seed=0)
-    calls = _record_jax(monkeypatch)
-    _encode_jax(jq, variables, tower, seed=0)
+    port = _port_tower(tower, seed=0)
+    calls = _jax_run(tower, 0, port)[0]
     before = quant.int8_conv.calls + quant.int8_matmul.calls
     _encode_port(port, tower, seed=0)
     got = quant.int8_conv.calls + quant.int8_matmul.calls - before
@@ -408,12 +457,10 @@ def test_int8_tower_matches_jax(monkeypatch, tower):
     glue within GLUE_TOL, the embedding within TOL of the JAX int8 one and
     TOL at least 10x below the JAX int8-versus-float difference."""
     for seed in SEEDS:
-        port, variables, jq, jf = _tower_models(tower, seed)
+        port = _port_tower(tower, seed)
         monkeypatch.undo()
-        calls = _record_jax(monkeypatch)
-        want = _encode_jax(jq, variables, tower, seed)
-        float_diff = np.abs(want - _encode_jax(jf, variables, tower,
-                                               seed)).max()
+        calls, want, float_want = _jax_run(tower, seed, port)
+        float_diff = np.abs(want - float_want).max()
         seen = _feed_jax_inputs(monkeypatch, calls)
         got = _encode_port(port, tower, seed)
         assert seen["n"] == len(calls) == PRODUCTS[tower]

@@ -97,20 +97,23 @@ def test_cli_writes_a_run_both_packages_read(tmp_path):
     assert out.returncode != 0 and "Extract the data first" in out.stderr
 
 
-def test_cli_preempted_by_sigusr1_exits_75_then_auto_resumes(tmp_path):
+def test_cli_preempted_by_sigusr1_exits_75_then_auto_resumes(tmp_path,
+                                                             capsys):
     config_file = _config_file(tmp_path, max_epochs=2,
                                limit_train_batches=2,
                                accumulate_grad_batches=1)
     log_dir = str(tmp_path / "logs")
-    hparams = os.path.join(log_dir, "version_0", "hparams.yaml")
+    version_0 = os.path.join(log_dir, "version_0")
     proc = subprocess.Popen(_cli(config_file, log_dir), cwd=ROOT,
                             env=_env(), stdout=subprocess.DEVNULL,
                             stderr=subprocess.PIPE, text=True)
     try:
         deadline = time.time() + 300
-        # the guard is armed before hparams.yaml is written
-        while not os.path.exists(hparams) and proc.poll() is None \
-                and time.time() < deadline:
+        # stopped once it has logged a row: the two runs are a resume
+        # chain of rows for both soak reports (below)
+        while not (os.path.exists(os.path.join(version_0, "metrics.csv"))
+                   and rows(version_0)) \
+                and proc.poll() is None and time.time() < deadline:
             time.sleep(0.05)
         assert proc.poll() is None, proc.stderr.read()[-3000:]
         proc.send_signal(signal.SIGUSR1)
@@ -140,6 +143,17 @@ def test_cli_preempted_by_sigusr1_exits_75_then_auto_resumes(tmp_path):
     steps = [int(r["step"]) for r in rows(os.path.join(log_dir, "version_1"))
              if r.get("train_loss")]
     assert steps[-1] == 4  # 2 epochs of 2 micro-steps in all
+
+    # the chain passes the port's soak report and the JAX package's, with
+    # the same lines (the lr error masked: tests/test_torch_port_soak.py)
+    from peppa_tpu_torch import soak_report
+    from test_torch_port_soak import _reports
+
+    chain = [os.path.join(log_dir, f"version_{i}") for i in (0, 1)]
+    (jax_rc, jax_lines), (rc, lines) = _reports(capsys, *chain)
+    assert (rc, jax_rc) == (0, 0), lines
+    assert lines == jax_lines
+    assert soak_report.main(chain[1:]) == 0  # the resumed run alone
 
 
 def test_parse_max_time_and_default_device(monkeypatch):

@@ -1,7 +1,7 @@
 """The port's kernel gradients against the JAX package's, on the CPU.
 
-The port's attention and loss `torch.autograd.Function`s run their plain
-versions here: the plain attention forward and `mha_attention_bwd_plain`
+The port's attention and loss ops under autograd (`torch.library`
+registrations with `register_autograd`) run their plain versions here: the plain attention forward and `mha_attention_bwd_plain`
 (`_bwd_kernel`'s formulas), and the loss's closed-form backward.  They are
 held against `jax.grad` through the Pallas kernels in interpret mode (the
 attention backward is then `_bwd_kernel` itself) at the tolerances of
@@ -134,7 +134,7 @@ def test_loss_grads_match_pallas(rng, b, d):
     for g, w in zip((tv.grad, ta.grad), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-6)
-    # the dispatching entry point goes through the same Function
+    # the dispatching entry point goes through the same op
     tv2, ta2 = (torch.from_numpy(x).requires_grad_() for x in (v, a))
     triplet_loss(tv2, ta2).backward()
     torch.testing.assert_close(tv2.grad, tv.grad, rtol=0, atol=0)
@@ -190,7 +190,7 @@ def test_loss_under_inference_mode_takes_no_autograd_path(monkeypatch):
     def refuse(*args):
         raise AssertionError("autograd path under inference_mode")
 
-    monkeypatch.setattr(loss_module._TripletLoss, "apply", refuse)
+    monkeypatch.setattr(loss_module, "loss_op", refuse)
     v = torch.randn(4, 8, requires_grad=True)
     with torch.inference_mode():
         assert not fused_triplet_loss(v, v.flip(0)).requires_grad
@@ -200,13 +200,14 @@ def test_loss_under_inference_mode_takes_no_autograd_path(monkeypatch):
 
 def test_serving_never_takes_the_autograd_path(monkeypatch):
     """Under `inference_mode` (EncoderService, eval_step) attention is the
-    forward alone: no Function, so the kernel writes no log-sum-exp."""
+    forward alone: not the training op, so the kernel writes no
+    log-sum-exp."""
     from peppa_tpu_torch.ops.cuda import attention
 
     def refuse(*args):
         raise AssertionError("autograd path under inference_mode")
 
-    monkeypatch.setattr(attention._Attention, "apply", refuse)
+    monkeypatch.setattr(attention, "attention_train_op", refuse)
     q = torch.randn(1, 8, 2, 16, requires_grad=True)
     with torch.inference_mode():
         assert not mha_attention(q, q, q).requires_grad
