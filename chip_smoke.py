@@ -59,10 +59,11 @@ Phases:
      processes at once on the host's cores); each program's export
      seconds and bytes, 12 `peppa_tpu_torch.mha_attention` nodes and no
      einsum in each audio graph, 79 / 37 `aten._int_mm` nodes in the int8
-     audio / video graphs; a second process (`--serve_artifacts`, JAX
-     blocked, no model code imported) that loads the artifacts with
-     `ExportedEncoders` and serves phase 3's requests (the int8 artifact
-     those of the 2.3 s bucket): embeddings equal bit for bit to the live
+     audio / video graphs (counted in the graphs the loading processes
+     load); a process for each artifact (`--serve_artifacts`, JAX
+     blocked, no model code imported; the int8 artifact's beside the
+     CLIs) that loads it with `ExportedEncoders` and serves phase 3's
+     requests (the int8 artifact those of the 2.3 s bucket): embeddings equal bit for bit to the live
      `EncoderService`s', kernel 1 12 times per audio program call, no plain
      version on the card, then kernel 1 against its plain version on the
      path's first input, and the host time to issue it through the custom
@@ -129,7 +130,8 @@ Phases:
      return the same embeddings, held against one process's within
      TP_SERVE_ATOL and each row's cosine above TP_SERVE_COS;
  4r. `tpu.remat_audio` and `remat_video` (`torch.utils.checkpoint` of the
-     towers): 4a's configuration, batches and 16 micro-steps with both
+     towers): 4a's configuration, batches and first 8 micro-steps (one
+     optimizer step) with both
      flags and without, with `audio.dropout: 0.0` (kernel 1 24 times a
      micro-step under remat against 12, kernel 2 12, kernel 3 once) and
      with the defaults (dropout and layer-drop, whose masks the recompute
@@ -170,11 +172,12 @@ Phases:
      (`StepTimer`), validation seconds, checkpoint bytes and seconds (the
      host copy also again and as copies alone), peak memory;
  4d. the same fit over the data pipeline: an episode tree written to
-     $TMPDIR at full size (180x100, 44.1 kHz; dialog train episodes 1-20,
+     $TMPDIR at full size (with 8's raw episodes, by a process that starts
+     beside phase 2) (180x100, 44.1 kHz; dialog train episodes 1-11,
      dialog val 197-209, narration val 1-13, two 9.5 s clips each), then
      `Trainer.fit` on `PigData` with the defaults (jittered windows, the
      native loader): the item caches and the pack built once (seconds and
-     bytes), sanity validation, 16 micro-steps, the full validation (104
+     bytes), sanity validation, 8 micro-steps, the full validation (104
      clips in each fixed loader, 104 lines in each line loader), the
      checkpoints; `TripletScorer` on the dialog val lines with the trained
      model; the native batches served and the side-stream copies made
@@ -182,9 +185,9 @@ Phases:
      the card; each kernel against its plain version at the path's shapes;
      then the native loader alone over one epoch's plan, the copy rate of
      one 2.3 s batch (pinned on a side stream, and pageable through
-     `ClipBatch.to`), and the step alone on the fit's 16 batches;
+     `ClipBatch.to`), and the step alone on the fit's 8 batches;
  6q. the int8 quality gate (`peppa_tpu_torch.quant_quality`) over phase
-     4d's run directory on its episode tree (seeded weights, 16
+     4d's run directory on its episode tree (seeded weights, 8
      micro-steps, synthetic clips: not a production reading): the
      validation battery with `tpu.quantize_int8` off and on over the same
      weights, both rows and their deltas; kernel 1 12 times and kernel 3
@@ -200,7 +203,7 @@ Phases:
      embedded bit-identically); `python -m peppa_tpu_torch.evaluate` on
      the msgpack directory (the battery: triplet accuracy and recall@1-10
      of fixed and jittered windows, scrambled and not, 500 bootstrap
-     subsets) and `python -m peppa_tpu_torch.targeted_eval --run` on 24
+     subsets) and `python -m peppa_tpu_torch.targeted_eval --run` on 12
      minimal pairs cut from the tree's narration clips, each with its
      seconds, batches and kernel 1 launches (12 per batch; kernel 3 none;
      no plain version on the card); one B=8 video encode of the static,
@@ -223,7 +226,7 @@ Phases:
      `plots`, `recall_at_1_to_n_plot`, `duration_effect_plot`, the
      targeted CLI's `--plot`); each step's seconds; kernel 1 against its
      plain version on every shape the phase gave it;
-  8. the corpus-preparation path on raw episodes it writes under $TMPDIR
+  8. the corpus-preparation path on raw episodes written under $TMPDIR
      in the reference's `data/in` layout (narration val 1-2 and dialog val
      197-198, 60 s each, 240x136 at 25 fps, mpeg4 + 44.1 kHz PCM .avi, 12
      subtitle lines each of a template grammar): `PigData.prepare_data`
@@ -246,7 +249,7 @@ Phases:
   9. the soak path on scripts/hparams_soak_production.yaml at full width
      (wav2vec2-base, R(2+1)D-18, B = 16 x accumulate 4, 64x48 video, 8 kHz
      audio, bf16 BatchNorm; `audio.pretrained: false` and a schedule cut
-     to 16 optimizer steps, validated every 32 micro-steps) on synthetic
+     to 8 optimizer steps, validated every 16 micro-steps) on synthetic
      clips: `peppa_tpu_torch.soak_run` drives two `--soak_child`
      processes (each `peppa_tpu_torch.run.main`); the first is sent
      SIGUSR1 after its first validation row and exits 75, the second
@@ -257,6 +260,29 @@ Phases:
      validation batch, kernel 2 none: dropout 0.1 takes the plain
      attention route), and each kernel against its plain version on the
      attempt's shapes;
+ 10. the measurement scripts: `peppa_tpu_torch.serving_bench` (--requests
+     2 --batch 8: warm-up, per-bucket latency, the export round trip) up
+     to its CPU child; while the child works on the host (niced),
+     `peppa_tpu_torch.bench.main()` in this process at smoke sizes set
+     through its own knobs (BENCH_K=2, BENCH_REPEATS=2, 3 host-fed windows
+     of 3 s, all three host-fed variants, BENCH_BATCH at its default 256:
+     the production tower, `video.midplanes_multiple` 128, bf16, 2.3 s
+     pairs), its JSON line parsed (every key, every number finite, the
+     card's own matmul peak, FLOP count, peak memory and name; three
+     windows a variant and the cold first pass); kernel 1 12 times per
+     encoded batch and FLOP pass, kernel 3 once per encoded batch and per
+     micro-step of the 16x4 train recipe, kernel 2 none (its dropout
+     0.1), no plain version on the card; kernels 1 and 3 against their
+     plain versions on the bench's first inputs of each shape (kernel 1
+     at B=256, 64 and 1, T=316; kernel 3 at B=256, the row and tile
+     passes, at the host-fed B=64 and the recipe's B=16 with the
+     gradient) and timed at B=256 beside their plain versions, SDPA and
+     their bounds, with kernel 3's device kernels per launch; then the
+     serving bench's launches (12 per audio forward, live and artifact;
+     the artifact's audio call 12, its video call none), the card's
+     artifact equal bit for bit to the live model, the CPU child's within
+     cosine 0.99 of it; the phase's, the bench's and the serving bench's
+     seconds;
   5. the same weights in float32 on the card (kernels) and on the CPU (plain
      versions): the serving embeddings of one 2.3 s pair, and one training
      micro-step (2 layers, B=2, `audio.dropout: 0.0`): loss and gradients;
@@ -264,8 +290,9 @@ then one JSON line of per-kernel numbers, one of the serving, training,
 evaluation, results and preparation metrics, the card's name and power
 limit, and the
 last line `{"ok": true, "device": {...}}`.  With `--phases`, only those
-phases run (phase 6 writes 4d's episode tree when 4d does not run; phase
-7 brings phase 6, and 6q brings 4d), and the summary is their records.
+phases run (4d's episode tree is written for phase 6 when 4d does not
+run; phase 7 brings phase 6, and 6q brings 4d), and the summary is their
+records.
 `python3 chip_smoke.py --first_step` times a fresh process's first two
 micro-steps (phase 4a's configuration) and prints one JSON line.
 
@@ -277,8 +304,8 @@ profiled fit, each of its seven fits and its scoring, the
 fit and the resumed fit of 4c, the fit and the scorer of 4d, 4a's
 compiled block, the gate of 6q, the loads, the battery, the targeted
 path and the towers of 6, each model step of 7, the realign and the
-targeted path of 8, each soak attempt of 9 in its own process) and read
-just after it.
+targeted path of 8, each soak attempt of 9 in its own process, the
+bench and the serving bench of 10) and read just after it.
 
 Any failed check raises, and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -1450,14 +1477,17 @@ def serve_artifacts(args) -> int:
     """Phase 3x's loading process (`chip_smoke.py --serve_artifacts
     ARTIFACT REQUESTS OUT ...`), with JAX blocked: each artifact loaded
     by `ExportedEncoders` on the card (seconds, and the peak memory of
-    loading and serving it) and served its requests (a .npz of `audio_NNN`
+    loading and serving it), the op nodes of each of its programs counted
+    (`_op_nodes`), and served its requests (a .npz of `audio_NNN`
     and `video_NNN`), the embeddings written to OUT; the program calls,
     kernel 1's launches and the plain version's calls on the card while
-    serving; kernel 1 held against its plain version on the path's first
-    input, and the host time to issue it through the custom op and
-    straight to its launch; the modules imported so far.  Then the model code, for encode
-    pairs/s at B=32 on 2.3 s: the first artifact's programs and phase 3's
-    live model in turns, on phase 3's batch.  Prints one JSON line."""
+    serving; the modules imported so far.  Then (not with `--serve_only`
+    first: phase 3x starts the int8 artifact's process so, beside its
+    CLIs) kernel 1 held against its plain version on the path's first
+    input, the host time of a call through the custom op and of one
+    straight to its launch, and with the model code, encode pairs/s at B=32 on 2.3
+    s: the first artifact's programs and phase 3's live model in turns,
+    on phase 3's batch.  Prints one JSON line."""
     import numpy as np
     import torch
 
@@ -1467,6 +1497,8 @@ def serve_artifacts(args) -> int:
     from peppa_tpu_torch.export import ExportedEncoders
     from peppa_tpu_torch.ops.cuda import attention
 
+    serve_only = args[:1] == ["--serve_only"]
+    args = args[1:] if serve_only else args
     plain, kept = {"plain": 0}, []
 
     def keep_first(real):
@@ -1489,6 +1521,14 @@ def serve_artifacts(args) -> int:
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         encoders.append(enc)
+        # the op nodes of each program, from the graphs it serves (phase
+        # 3x checks them; one load of each program in all)
+        ops = {}
+        for prog in enc.manifest["programs"]:
+            if prog["platform"] == "cuda":
+                graph = enc._programs[prog["kind"]][
+                    prog["input_shape"][1]].graph
+                ops[prog["file"]] = _op_nodes(graph)
         calls = {"audio": 0, "video": 0}
 
         def counted(real):
@@ -1508,12 +1548,21 @@ def serve_artifacts(args) -> int:
         torch.cuda.synchronize()
         report["artifacts"].append({
             "artifact": os.path.basename(artifact), "load_s": load_s,
+            "op_nodes": ops,
             "peak_memory_gib": (torch.cuda.max_memory_allocated() - base)
             / 2**30, "calls": dict(calls),
             "attention_fwd": attention.mha_attention.launches})
         np.savez(emb_path, audio=a, video=v)
     for undo in undos:
         undo()
+    report["plain_on_card"] = plain["plain"]
+    report["imported"] = sorted(
+        m for m, mod in sys.modules.items() if mod is not None
+        and m.startswith(("peppa_tpu_torch.models", "peppa_tpu_torch.training",
+                          "peppa_tpu.", "jax", "flax")))
+    if serve_only:  # another process holds and times kernel 1
+        print(json.dumps(report))
+        return 0
     q, k, v, lengths, scale = kept[0][:5]
     got = attention._launch(q, k, v, lengths, scale)[0]
     want = attention.mha_attention_plain(q, k, v, lengths, scale)
@@ -1536,11 +1585,6 @@ def serve_artifacts(args) -> int:
         issue[tag] = (time.perf_counter() - t0) * 1e4  # us per call
         torch.cuda.synchronize()
     report["issue_us"] = issue
-    report["plain_on_card"] = plain["plain"]
-    report["imported"] = sorted(
-        m for m, mod in sys.modules.items() if mod is not None
-        and m.startswith(("peppa_tpu_torch.models", "peppa_tpu_torch.training",
-                          "peppa_tpu.", "jax", "flax")))
 
     from peppa_tpu_torch.config import default_config
     from peppa_tpu_torch.models.dual_encoder import init_model
@@ -1572,25 +1616,42 @@ def serve_artifacts(args) -> int:
     return 0
 
 
-def _programs(path: str, tower: str) -> list:
-    """Each program of an artifact: export seconds, bytes and the op
-    nodes that phase 3x checks."""
-    from peppa_tpu_torch.export import op_counts
+def _op_nodes(graph) -> dict:
+    """The op nodes of a program's graph that phase 3x checks: attention
+    ops, `_int_mm`s and einsums."""
+    counts = {"attention_op": 0, "int_mm": 0, "einsum": 0}
+    for node in graph.nodes:
+        if node.op != "call_function":
+            continue
+        name = str(node.target)
+        counts["attention_op"] += name == ATTN_OP
+        counts["int_mm"] += name == INT_MM_OP
+        counts["einsum"] += "einsum" in name
+    return counts
 
+
+def _serving_args(work: str, tag: str, artifact: str, requests: dict
+                  ) -> list:
+    """`--serve_artifacts` arguments of one artifact: its path, its
+    requests written to a .npz, the path of the embeddings it writes."""
+    import numpy as np
+
+    req = os.path.join(work, f"requests_{tag}.npz")
+    np.savez(req, **{f"{kind}_{i:03d}": x for kind, xs in requests.items()
+                     for i, x in enumerate(xs)})
+    return [artifact, req, os.path.join(work, f"emb_{tag}.npz")]
+
+
+def _programs(path: str, tower: str, op_nodes: dict) -> list:
+    """Each program of an artifact: export seconds, bytes and its op nodes
+    (`op_nodes`: file -> counts, from the loading process)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    out = []
-    for prog in manifest["programs"]:
-        f = os.path.join(path, prog["file"])
-        counts = op_counts(f)
-        out.append({"tower": tower, "kind": prog["kind"],
-                    "file": prog["file"], "export_s": prog["export_s"],
-                    "bytes": os.path.getsize(f),
-                    "attention_op": counts.get(ATTN_OP, 0),
-                    "int_mm": counts.get(INT_MM_OP, 0),
-                    "einsum": sum(n for name, n in counts.items()
-                                  if "einsum" in name)})
-    return out
+    return [{"tower": tower, "kind": prog["kind"], "file": prog["file"],
+             "export_s": prog["export_s"],
+             "bytes": os.path.getsize(os.path.join(path, prog["file"])),
+             **op_nodes[prog["file"]]}
+            for prog in manifest["programs"]]
 
 
 def _write_wavs(wav_dir: str) -> str:
@@ -1660,44 +1721,9 @@ def run_export(report: dict, card: str, root: str) -> None:
         export_encoders(model_q, cfg_q, art_q, batch_size=32,
                         buckets=[EXPORT_INT8_BUCKET])
         print(f"int8 export (2 programs): {time.perf_counter() - t0:.1f} s")
-        _wait(export_job, "export CLI (4 buckets x 2 towers)")
-        out = _wait(example_job, "example CLI (beside them), ended within")
-        line = ("Audio embedding tensor with shape: "
-                f"({len(EXAMPLE_SECONDS)}, 512)")
-        if out.strip().splitlines()[-1] != line:
-            raise AssertionError(f"example printed {out[-500:]!r}")
-        example_s = time.perf_counter() - example_job[1]  # an upper bound
 
-        programs = _programs(art, "bf16") + _programs(art_q, "int8")
-        variables_bytes = os.path.getsize(os.path.join(art, "variables.pt"))
-        for p in programs:
-            print(f"  {p['tower']} {p['file']}: export {p['export_s']:.2f} "
-                  f"s, {p['bytes']} bytes, {p['attention_op']} attention "
-                  f"op, {p['int_mm']} _int_mm, {p['einsum']} einsum nodes")
-        # each artifact's programs against its own weights (the graphs
-        # keep their source lines' paths, so their bytes grow with the
-        # checkout's path)
-        share = {tower: sum(p["bytes"] for p in programs
-                            if p["tower"] == tower) / os.path.getsize(
-                                os.path.join(path, "variables.pt"))
-                 for tower, path in (("bf16", art), ("int8", art_q))}
-        print(f"variables.pt {variables_bytes} bytes; the programs' bytes "
-              f"a share of it: " + ", ".join(f"{k} {v:.4f}"
-                                            for k, v in share.items()))
-        for p in programs:
-            want = {"attention_op": n_layers if p["kind"] == "audio" else 0,
-                    "einsum": 0,
-                    "int_mm": 0 if p["tower"] == "bf16" else sum(
-                        (INT8_PER_AUDIO if p["kind"] == "audio"
-                         else INT8_PER_VIDEO).values())}
-            if {k: p[k] for k in want} != want:
-                raise AssertionError(f"program graph {p} != {want}")
-        if (len(programs) != 2 * len(cfg.tpu.bucket_durations) + 2
-                or max(share.values()) >= 0.05):
-            raise AssertionError(f"programs {programs}, weights "
-                                 f"{variables_bytes} bytes")
-
-        # phase 3's requests (its generator's first draws), served live
+        # phase 3's requests (its generator's first draws), served live;
+        # the int8 artifact's loading process starts while the CLIs run
         rng = np.random.default_rng(0)
         waves, clips = _requests(rng, cfg, 40)
         svc = EncoderService(model, cfg, batch_size=32)
@@ -1708,9 +1734,14 @@ def run_export(report: dict, card: str, root: str) -> None:
                          if svc._audio_bucket(len(w)) == s23],
                "video": [c for c in clips
                          if svc._video_bucket(len(c)) == t23]}
-        live = {"bf16": (svc.embed_audio(waves), svc.embed_video(clips)),
-                "int8": (svc_q.embed_audio(sub["audio"]),
+        live = {"int8": (svc_q.embed_audio(sub["audio"]),
                          svc_q.embed_video(sub["video"]))}
+        int8_job = _spawn([sys.executable,
+                           os.path.join(HERE, "chip_smoke.py"),
+                           "--serve_artifacts", "--serve_only",
+                           *_serving_args(work, "int8", art_q, sub)], jobs)
+        live = {"bf16": (svc.embed_audio(waves), svc.embed_video(clips)),
+                **live}
         groups = group_by_bucket(clips, lambda x: svc._video_bucket(len(x)))
         want_calls = {"bf16": {"audio": _audio_batches(svc, waves),
                                "video": sum(-(-len(i) // 32)
@@ -1718,26 +1749,64 @@ def run_export(report: dict, card: str, root: str) -> None:
                       "int8": {"audio": 1, "video": 1}}
         del svc, svc_q, model, model_q
         torch.cuda.empty_cache()
-        args = []
-        for tag, path, reqs in (("bf16", art, {"audio": waves,
-                                               "video": clips}),
-                                ("int8", art_q, sub)):
-            req = os.path.join(work, f"requests_{tag}.npz")
-            np.savez(req, **{f"{kind}_{i:03d}": x
-                             for kind, xs in reqs.items()
-                             for i, x in enumerate(xs)})
-            args += [path, req, os.path.join(work, f"emb_{tag}.npz")]
+        _wait(export_job, "export CLI (4 buckets x 2 towers)")
+        out = _wait(example_job, "example CLI (beside them), ended within")
+        line = ("Audio embedding tensor with shape: "
+                f"({len(EXAMPLE_SECONDS)}, 512)")
+        if out.strip().splitlines()[-1] != line:
+            raise AssertionError(f"example printed {out[-500:]!r}")
+        example_s = time.perf_counter() - example_job[1]  # an upper bound
         out = _wait(_spawn([sys.executable,
                             os.path.join(HERE, "chip_smoke.py"),
-                            "--serve_artifacts", *args], jobs),
-                    "artifact serving (JAX blocked)")
+                            "--serve_artifacts",
+                            *_serving_args(work, "bf16", art,
+                                           {"audio": waves,
+                                            "video": clips})], jobs),
+                    "bf16 artifact serving (JAX blocked)")
+        out_q = _wait(int8_job, "int8 artifact serving (JAX blocked, "
+                      "beside the CLIs), ended within")
     finally:
         for proc, _ in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     served = json.loads(out.strip().splitlines()[-1])
+    served_q = json.loads(out_q.strip().splitlines()[-1])
+    served["artifacts"] += served_q["artifacts"]
+    served["plain_on_card"] += served_q["plain_on_card"]
+    served["imported"] = sorted(set(served["imported"])
+                                | set(served_q["imported"]))
     print(json.dumps(served))
+    programs = [p for (tower, path), rec in zip(
+        (("bf16", art), ("int8", art_q)), served["artifacts"])
+        for p in _programs(path, tower, rec["op_nodes"])]
+    variables_bytes = os.path.getsize(os.path.join(art, "variables.pt"))
+    for p in programs:
+        print(f"  {p['tower']} {p['file']}: export {p['export_s']:.2f} "
+              f"s, {p['bytes']} bytes, {p['attention_op']} attention "
+              f"op, {p['int_mm']} _int_mm, {p['einsum']} einsum nodes")
+    # each artifact's programs against its own weights (the graphs keep
+    # their source lines' paths, so their bytes grow with the checkout's
+    # path)
+    share = {tower: sum(p["bytes"] for p in programs
+                        if p["tower"] == tower) / os.path.getsize(
+                            os.path.join(path, "variables.pt"))
+             for tower, path in (("bf16", art), ("int8", art_q))}
+    print(f"variables.pt {variables_bytes} bytes; the programs' bytes a "
+          f"share of it: " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in share.items()))
+    for p in programs:
+        want = {"attention_op": n_layers if p["kind"] == "audio" else 0,
+                "einsum": 0,
+                "int_mm": 0 if p["tower"] == "bf16" else sum(
+                    (INT8_PER_AUDIO if p["kind"] == "audio"
+                     else INT8_PER_VIDEO).values())}
+        if {k: p[k] for k in want} != want:
+            raise AssertionError(f"program graph {p} != {want}")
+    if (len(programs) != 2 * len(cfg.tpu.bucket_durations) + 2
+            or max(share.values()) >= 0.05):
+        raise AssertionError(f"programs {programs}, weights "
+                             f"{variables_bytes} bytes")
     differ = []
     for (tag, (a_live, v_live)), rec in zip(live.items(),
                                             served["artifacts"]):
@@ -2851,6 +2920,7 @@ def run_tensor_parallel(report: dict, card: str) -> None:
 
 
 # ----------------------------------------------------------------- phase 4r
+REMAT_STEPS = 8  # 4a's first micro-steps: one optimizer step at k = 8
 REMAT_STATIC_STEPS, REMAT_STATIC_K = 4, 2  # the static tower's runs
 
 
@@ -2928,7 +2998,7 @@ def _same_runs(tag: str, got: dict, want: dict) -> int:
 
 
 def run_remat(report: dict, card: str) -> None:
-    """Phase 4r (module doc): 4a's configuration (B=8 of 2.3 s, k=8, 16
+    """Phase 4r (module doc): 4a's configuration (B=8 of 2.3 s, k=8, 8
     micro-steps) with `tpu.remat_audio` and `remat_video` against the same
     run without them, with `audio.dropout: 0.0` (kernels 1 and 2) and with
     the defaults (dropout and layer-drop, where the recompute must draw the
@@ -2943,7 +3013,7 @@ def run_remat(report: dict, card: str) -> None:
     rng = np.random.default_rng(2)  # 4a's batches, in 4a's order
     cfg0 = default_config()
     batches = [_clip_batch(rng, cfg0, TRAIN_B, TRAIN_SECONDS)
-               for _ in range(TRAIN_MICRO_STEPS)]
+               for _ in range(REMAT_STEPS)]
     n_layers = 12  # wav2vec2-base's
     record = {}
     deterministic = torch.backends.cudnn.deterministic
@@ -2951,7 +3021,7 @@ def run_remat(report: dict, card: str) -> None:
     try:
         for mode in ("dropout0", "default", "static"):
             cfg = default_config()
-            steps = TRAIN_MICRO_STEPS
+            steps = REMAT_STEPS
             if mode == "dropout0":
                 cfg.audio.dropout = 0.0
             if mode == "static":
@@ -3679,13 +3749,14 @@ def run_trainer(report: dict, card: str) -> None:
 
 
 # ----------------------------------------------------------------- phase 4d
-# the episode tree: dialog train 1-20, dialog val 197-209, narration val
-# 1-13, two 9.5 s clips each (SPLIT_SPEC's episode numbers): 160 train
-# windows (19 batches of 8, the fit takes 16), 104 in each fixed
-# validation set (the recall's subsets take 100) and 104 lines in each
-# line set
-PIPELINE_EPISODES = {"dialog": tuple(range(1, 21)) + tuple(range(197, 210)),
+# the episode tree: dialog train 1-11, dialog val 197-209, narration val
+# 1-13, two 9.5 s clips each (SPLIT_SPEC's episode numbers): 88 train
+# windows (9 batches of 8, the fit takes 8: one optimizer step at k = 8),
+# 104 in each fixed validation set (the recall's subsets take 100) and 104
+# lines in each line set
+PIPELINE_EPISODES = {"dialog": tuple(range(1, 12)) + tuple(range(197, 210)),
                      "narration": tuple(range(1, 14))}
+PIPELINE_MICRO_STEPS = 8
 PIPELINE_CLIPS, PIPELINE_CLIP_S = 2, 9.5
 PIPELINE_FIELDS = ("video", "audio", "video_duration", "audio_duration",
                    "video_frames", "audio_samples")
@@ -3752,25 +3823,57 @@ def _write_pipeline_tree(cfg) -> tuple:
             episodes=episodes, clips_per_episode=PIPELINE_CLIPS,
             clip_seconds=PIPELINE_CLIP_S,
             sample_rate=d.audio_sample_rate, seed=0, correlated=True)
-    tree_s = time.perf_counter() - t0
-    tree_bytes = _dir_bytes(d.data_dir, "out/*/*/*/*.npz")
-    n_files = PIPELINE_CLIPS * sum(map(len, PIPELINE_EPISODES.values()))
-    print(f"pipeline: episode tree of {n_files} clips of "
-          f"{PIPELINE_CLIP_S} s ({w}x{h}, {d.audio_sample_rate} Hz) "
-          f"written in {tree_s:.1f} s, {tree_bytes} bytes")
-    return tree_s, tree_bytes
+    return time.perf_counter() - t0, _dir_bytes(d.data_dir,
+                                                "out/*/*/*/*.npz")
 
 
-def run_pipeline(report: dict, card: str, root: str) -> None:
+def write_data(argv) -> int:
+    """`chip_smoke.py --write_data TREE_DIR RAW_DIR`, a process that main
+    starts beside the first phases (host work only, files from seeds):
+    phase 4d's episode tree under TREE_DIR at the base configuration's
+    frame size and sample rate, and phase 8's raw episodes under RAW_DIR
+    (either "-": not written); prints one JSON line of their seconds,
+    the tree's bytes and the raw episodes' subtitle lines."""
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    from peppa_tpu_torch.config import default_config
+
+    tree_dir, raw_dir = argv
+    out = {}
+    if tree_dir != "-":
+        cfg = default_config()
+        cfg.data.data_dir = tree_dir
+        out["tree_s"], out["tree_bytes"] = _write_pipeline_tree(cfg)
+    if raw_dir != "-":
+        t0 = time.perf_counter()
+        out["raw_lines"] = _write_raw_episodes(raw_dir,
+                                               np.random.default_rng(8))
+        out["raw_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    return 0
+
+
+def _data_written(data: dict) -> dict:
+    """Wait once for main's `--write_data` process (`data["job"]`): what
+    it reported."""
+    if "out" not in data:
+        out = _wait(data["job"], "4d's tree and 8's raw episodes (a process "
+                    "beside the first phases), ended within", timeout=900)
+        data["out"] = json.loads(out.strip().splitlines()[-1])
+    return data["out"]
+
+
+def run_pipeline(report: dict, card: str, root: str, data: dict) -> None:
     """`Trainer.fit` of the base configuration (the defaults: jittered 2.3 s
     windows, dropout, layer-drop, B=8, k=8, the native loader) over
     `PigData` on an episode tree written at full size under `root` (kept
     for phase 6): the item caches and the pack built once, sanity
-    validation, 16 micro-steps, the full validation, the checkpoints; then
+    validation, 8 micro-steps, the full validation, the checkpoints; then
     `TripletScorer` on the dialog val lines with the trained model.  Around
     it: the native loader alone over one epoch's plan, the copy rate of
     one 2.3 s batch pinned and pageable, and the step alone on the fit's
-    16 batches."""
+    8 batches."""
     import itertools
     import random
     from collections import Counter
@@ -3796,10 +3899,17 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
         cfg = default_config()
         d = cfg.data
         d.data_dir = os.path.join(root, "data")
-        tree_s, tree_bytes = _write_pipeline_tree(cfg)
+        written = _data_written(data)
+        tree_s, tree_bytes = written["tree_s"], written["tree_bytes"]
+        w, h = d.target_size
+        print(f"pipeline: episode tree of "
+              f"{PIPELINE_CLIPS * sum(map(len, PIPELINE_EPISODES.values()))}"
+              f" clips of {PIPELINE_CLIP_S} s ({w}x{h}, "
+              f"{d.audio_sample_rate} Hz) written in {tree_s:.1f} s beside "
+              f"the first phases, {tree_bytes} bytes")
 
         cfg.training.max_epochs = 1
-        cfg.training.limit_train_batches = TRAINER_MICRO_STEPS
+        cfg.training.limit_train_batches = PIPELINE_MICRO_STEPS
         cfg.training.num_sanity_val_steps = TRAINER_SANITY
         data = PigData(cfg)
         record = {"setup": [], "pack": [], "validation": [], "plain": 0}
@@ -3851,7 +3961,7 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
         sanity = sum(min(n, TRAINER_SANITY) for n in per_loader)
         full = sum(per_loader)
         print(f"pipeline: fit in {fit_s:.1f} s (sanity validation {sanity} "
-              f"batches, {TRAINER_MICRO_STEPS} micro-steps, validation "
+              f"batches, {PIPELINE_MICRO_STEPS} micro-steps, validation "
               f"{full} batches {per_loader}, checkpoints); native batches "
               f"served {served}; side-stream copies {copies}; launches "
               f"{launches}; plain versions on the card {record['plain']}; "
@@ -3859,11 +3969,11 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
         n_layers = state.model.audio_encoder.wav2vec2.cfg.num_layers
         want = {"attention_fwd": n_layers * (sanity + full),
                 "attention_bwd": 0,
-                "triplet_loss": sanity + full + TRAINER_MICRO_STEPS}
+                "triplet_loss": sanity + full + PIPELINE_MICRO_STEPS}
         if launches != want:
             raise AssertionError(f"pipeline launches {launches} != {want}")
-        if served != TRAINER_MICRO_STEPS \
-                or copies != sanity + full + TRAINER_MICRO_STEPS:
+        if served != PIPELINE_MICRO_STEPS \
+                or copies != sanity + full + PIPELINE_MICRO_STEPS:
             raise AssertionError(f"native batches {served}, side-stream "
                                  f"copies {copies}")
         if record["plain"]:
@@ -3876,7 +3986,7 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
         if set(metrics) != keys or not all(np.isfinite(list(
                 metrics.values()))):
             raise AssertionError(f"validation metrics {metrics}")
-        if state.step != TRAINER_MICRO_STEPS:
+        if state.step != PIPELINE_MICRO_STEPS:
             raise AssertionError(f"pipeline fit stopped at step {state.step}")
 
         # TripletScorer on the dialog val lines (the cache of val_dia3)
@@ -3930,9 +4040,9 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
               f"{pinned_gbs:.2f} GB/s, pageable through ClipBatch.to "
               f"{pageable_gbs:.2f} GB/s")
 
-        # the step alone on the fit's 16 batches (already on the card)
+        # the step alone on the fit's batches (already on the card)
         batches = [b.to("cuda") for b in itertools.islice(
-            data.train_batches(0), TRAINER_MICRO_STEPS)]
+            data.train_batches(0), PIPELINE_MICRO_STEPS)]
         mix = Counter(f"{b.video.shape[1] / 10:.1f} s"
                       for b in batches)
         for i, b in enumerate(batches):
@@ -3941,11 +4051,11 @@ def run_pipeline(report: dict, card: str, root: str) -> None:
                 m["train_loss"].item()
                 t1 = time.perf_counter()
         m["train_loss"].item()
-        alone = (TRAINER_MICRO_STEPS - 3) * d.train.batch_size / (
+        alone = (PIPELINE_MICRO_STEPS - 3) * d.train.batch_size / (
             time.perf_counter() - t1)
         step_alone_23 = report["train_default"]["train_clips_per_s"]
         print(f"pipeline: {clips_per_s:.2f} train clips/s (StepTimer, "
-              f"micro-steps 4-{TRAINER_MICRO_STEPS}); the step alone on the "
+              f"micro-steps 4-{PIPELINE_MICRO_STEPS}); the step alone on the "
               f"same batches {alone:.2f} (buckets {dict(mix)}); phase 4b's "
               f"step alone on 2.3 s clips {step_alone_23:.2f}; sanity "
               f"validation {sanity_s:.2f} s; full validation {val_s:.2f} s "
@@ -3988,7 +4098,7 @@ QUANT_KEYS = ("val_loss", "val_rec_fixed", "valnarr_loss",
 def run_quant_quality(report: dict, card: str, root: str) -> None:
     """The int8 quality gate (`python -m peppa_tpu_torch.quant_quality`'s
     `quant_quality`) over phase 4d's run directory on its episode tree:
-    the best checkpoint of 16 micro-steps from seeded weights on synthetic
+    the best checkpoint of 8 micro-steps from seeded weights on synthetic
     clips, so its rows say what int8 does to a barely trained model, not
     a production reading.  The validation battery with
     `tpu.quantize_int8` off and then on over the same weights: both rows
@@ -4027,7 +4137,7 @@ def run_quant_quality(report: dict, card: str, root: str) -> None:
     launches = _counts()
     products = quant.int8_conv.calls + quant.int8_matmul.calls - products
     print(f"6q: quant_quality over phase 4d's run (the synthetic episode "
-          f"tree, seeded weights, 16 micro-steps: not a production reading) "
+          f"tree, seeded weights, 8 micro-steps: not a production reading) "
           f"in {seconds:.1f} s; {batches} validation batches a row; "
           f"launches {launches}; int8 products {products}; plain versions "
           f"on the card {record['plain']} ({card})")
@@ -4043,7 +4153,7 @@ def run_quant_quality(report: dict, card: str, root: str) -> None:
                              f"{record['plain']}, int8 products {products}")
     report["launches"]["quant_quality"] = launches
     report["quant_quality"] = {
-        "run": "phase 4d (synthetic tree, seeded, 16 micro-steps)",
+        "run": "phase 4d (synthetic tree, seeded, 8 micro-steps)",
         "float": rows["float"], "int8": rows["int8"],
         "deltas": {k: rows["int8"][k] - rows["float"][k] for k in QUANT_KEYS},
         "seconds": seconds, "validation_batches": batches,
@@ -4055,7 +4165,7 @@ def run_quant_quality(report: dict, card: str, root: str) -> None:
 # ------------------------------------------------------------------ phase 6
 EVAL_SAMPLES = 500  # the battery's bootstrap subsets and triplet rounds
 TARGETED_POS = ("ADJ", "VERB", "NOUN")
-TARGETED_PAIRS = 8  # per POS tag: 24 minimal pairs, 48 clips
+TARGETED_PAIRS = 4  # per POS tag: 12 minimal pairs, 24 clips
 WEIGHT_NORM_RTOL = 1e-6  # the positional conv's g and v
 TOWER_B, TOWER_SECONDS = 8, 2.3
 RUN_META = {"monitor": "valnarr_triplet", "mode": "max",
@@ -4219,7 +4329,7 @@ def _tower_ms(cfg, rng) -> tuple:
             float(np.abs(np.linalg.norm(v, axis=1) - 1).max()))
 
 
-def run_evaluation(report: dict, card: str, root: str) -> None:
+def run_evaluation(report: dict, card: str, root: str, data: dict) -> None:
     """The evaluation entry at full width (`hparams_base.yaml`, bf16, seeded
     weights): the model written as a run directory of each format and read
     back by `load_best_model` on the card (weights equal to the source's,
@@ -4248,8 +4358,7 @@ def run_evaluation(report: dict, card: str, root: str) -> None:
 
     cfg = default_config()  # hparams_base.yaml: bf16, full width
     cfg.data.data_dir = os.path.join(root, "data")  # phase 4d's tree
-    if not os.path.isdir(cfg.data.data_dir):  # phase 6 without 4d
-        _write_pipeline_tree(cfg)
+    _data_written(data)  # written for phase 6 alone when 4d does not run
     rng = np.random.default_rng(6)
     record = {"plain": 0, "batches": 0, "forward_s": 0.0, "cache": []}
     inputs = {"battery": {}, "targeted": {}}
@@ -5169,9 +5278,9 @@ def aligner_attention_times(report: dict) -> list:
     return rows
 
 
-def run_prep(report: dict, card: str, root: str) -> None:
-    """The corpus-preparation path (module doc, phase 8) on raw episodes it
-    writes: extraction through `PigData.prepare_data`, `realign` with the
+def run_prep(report: dict, card: str, root: str, data: dict) -> None:
+    """The corpus-preparation path (module doc, phase 8) on the raw
+    episodes main's `--write_data` process wrote: extraction through `PigData.prepare_data`, `realign` with the
     port's wav2vec2 CTC model on the card (kernel 1 with key lengths, 12
     launches per utterance), `extract_realines`, the eval sets through
     `python -m peppa_tpu_torch.generate_eval_sets`, `targeted_eval --run`
@@ -5211,14 +5320,14 @@ def run_prep(report: dict, card: str, root: str) -> None:
     data_dir = cfg.data.data_dir = os.path.join(root, "prep", "data")
     cfg.data.extract, cfg.data.prepare = True, False
     stats: dict = {"steps_s": {}}
-    rng = np.random.default_rng(8)
-    t0 = time.perf_counter()
-    stats["lines"] = _write_raw_episodes(data_dir, rng)
-    stats["steps_s"]["raw_episodes"] = time.perf_counter() - t0
+    written = _data_written(data)  # under data_dir, beside the phases
+    stats["lines"] = written["raw_lines"]
+    stats["steps_s"]["raw_episodes"] = written["raw_s"]
     print(f"prep: raw episodes {PREP_EPISODES} of {PREP_SECONDS:g} s "
           f"({PREP_SIZE[0]}x{PREP_SIZE[1]}, {PREP_FPS} fps, mpeg4 + "
           f"{PREP_RATE} Hz PCM .avi), {stats['lines']} subtitle lines, "
-          f"written in {stats['steps_s']['raw_episodes']:.1f} s")
+          f"written in {stats['steps_s']['raw_episodes']:.1f} s beside "
+          f"the first phases")
 
     # extraction, through the data module
     t0 = time.perf_counter()
@@ -5424,11 +5533,11 @@ def run_prep(report: dict, card: str, root: str) -> None:
 
 # ------------------------------------------------------------------ phase 9
 # the production soak recipe with only these keys changed: no wav2vec2 file
-# in the repository (audio.pretrained), and a schedule cut to 16 optimizer
-# steps (64 micro-steps at k = 4), validated every 32 micro-steps and
+# in the repository (audio.pretrained), and a schedule cut to 8 optimizer
+# steps (32 micro-steps at k = 4), validated every 16 micro-steps and
 # logged every 4 (its optimizer keys as they are: t_total 15000)
 SOAK_RECIPE = os.path.join("scripts", "hparams_soak_production.yaml")
-SOAK_STEPS, SOAK_VAL_EVERY, SOAK_LOG_EVERY = 16, 32, 4
+SOAK_STEPS, SOAK_VAL_EVERY, SOAK_LOG_EVERY = 8, 16, 4
 SOAK_TRAIN_CLIPS = 256  # --synthetic_train: 16 micro-batches of 16 an epoch
 SOAK_SIGNAL = "SIGUSR1"  # one of the recipe's tpu.preempt_signals
 SOAK_TIMEOUT = 600  # seconds an attempt may take
@@ -5683,6 +5792,335 @@ def run_soak(report: dict, card: str, root: str) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- phase 10
+# the bench at smoke sizes, set through its own knobs (BENCH_BATCH at its
+# default, 256 pairs of 2.3 s; the host-fed path at its default B=64)
+BENCH_SMOKE_ENV = {"BENCH_K": "2", "BENCH_REPEATS": "2",
+                   "BENCH_HOST_WINDOWS": "3",
+                   "BENCH_HOST_WINDOW_SECONDS": "3",
+                   "BENCH_HOST_VARIANTS": "f32,int16,cold"}
+BENCH_B, BENCH_HOST_B = 256, 64  # the bench's encode and host-fed batches
+SERVING_BENCH_REQUESTS, SERVING_BENCH_BATCH = 2, 8
+# the CPU child's bf16 artifact against the card's: bf16 products round
+# on other paths on the two platforms (tests/test_quant.py's cosine bound)
+SERVING_BENCH_COS = 0.99
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "pct_of_chip_peak",
+              "pct_assumes", "chip_peak_tflops_band", "model_tflop_per_pair",
+              "host_fed_pairs_per_sec", "host_fed", "train_clips_per_sec",
+              "train_step_ms", "train_recipe", "device",
+              "encode_peak_memory_gib", "train_peak_memory_gib")
+
+
+def _numbers(x, path: str = ""):
+    """(path, number) of every number in a JSON value."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from _numbers(v, f"{path}/{k}")
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            yield from _numbers(v, f"{path}/{i}")
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield path, x
+
+
+def _calls(record: dict, key: str):
+    """A wrapper that counts its calls in record[key]."""
+    def wrap(real):
+        def run(*args, **kw):
+            record[key] += 1
+            return real(*args, **kw)
+        return run
+    return wrap
+
+
+def _bench_kernel_rows(inputs: dict) -> dict:
+    """Kernel 1 (bf16, the encode's B=256, T=316) and kernel 3 (the
+    encode's B=256: the row and tile passes) timed on the inputs the
+    bench gave them, beside the plain version, the library's call (kernel
+    1: SDPA) and the bound; kernel 3's device kernels per wrapper launch
+    at B=256 and B=64 by `torch.profiler`."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
+                                                    mha_attention_plain)
+    from peppa_tpu_torch.ops.cuda.loss import (fused_triplet_loss,
+                                               fused_triplet_loss_plain)
+
+    rows = {}
+    (q, k, v), kw = next(val for key, val in inputs.items()
+                         if key[0] == "attention" and key[1][0] == BENCH_B)
+    b, t, h, hd = q.shape
+    scale = kw["scale"]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.inference_mode():
+        ms = time_ms(lambda: mha_attention(q, k, v, scale=scale))
+        dev_ms = graph_ms(lambda: mha_attention(q, k, v, scale=scale))
+        plain_ms = time_ms(lambda: mha_attention_plain(q, k, v, None, scale),
+                           iters=3)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale))
+        lib_dev_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale))
+    bms, by = bound(4 * b * t * h * hd * q.element_size(),
+                    4 * b * h * t * t * hd, "bfloat16")
+    rows["attention"] = {"B": b, "T": t, "dtype": "bfloat16", "path": "bench",
+                         "ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "library_graph_ms": lib_dev_ms,
+                         "bound_ms": bms, "bound_by": by}
+    print(f"10 kernel 1 bf16 B={b} T={t}: {ms:.4f} ms back-to-back, "
+          f"{dev_ms:.4f} graph-replayed; plain {plain_ms:.4f}; SDPA "
+          f"{lib_ms:.4f} / {lib_dev_ms:.4f}; bound {bms:.4f} ms ({by})")
+
+    per_launch = {}
+    for bb in sorted({key[1][0] for key in inputs
+                      if key[0] == "triplet_loss" and not key[3]}):
+        (va, aa, margin), _ = next(
+            val for key, val in inputs.items()
+            if key[0] == "triplet_loss" and key[1][0] == bb and not key[3])
+        va, aa = va.float(), aa.float()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fused_triplet_loss(va, aa, margin)
+            torch.cuda.synchronize()
+        per_launch[bb] = {e.key[:40]: e.count / 10
+                          for e in prof.key_averages()
+                          if "loss_" in e.key and e.count}
+        print(f"10 kernel 3 B={bb}: device kernels per wrapper launch "
+              f"{per_launch[bb]}")
+        if bb != BENCH_B:
+            continue
+        d = va.shape[1]
+        ms = time_ms(lambda: fused_triplet_loss(va, aa, margin))
+        dev_ms = graph_ms(lambda: fused_triplet_loss(va, aa, margin))
+        plain_ms = time_ms(lambda: fused_triplet_loss_plain(va, aa, margin))
+        bms, by = bound(2 * bb * d * 4 + 4, 2 * bb * bb * d, "float32")
+        rows["triplet_loss"] = {"B": bb, "D": d, "path": "bench", "ms": ms,
+                                "graph_ms": dev_ms, "plain_ms": plain_ms,
+                                "library_ms": None, "bound_ms": bms,
+                                "bound_by": by}
+        print(f"10 kernel 3 B={bb} D={d}: {ms:.4f} ms back-to-back, "
+              f"{dev_ms:.4f} graph-replayed; plain {plain_ms:.4f}; bound "
+              f"{bms:.6f} ms ({by})")
+    rows["triplet_loss"]["kernels_per_launch"] = per_launch
+    return rows
+
+
+def _serving_bench_start(calls: dict):
+    """`serving_bench.start` (--requests 2 --batch 8) with its audio
+    forwards, its artifact's program calls (each with kernel 1's launches)
+    and plain versions on the card counted in `calls`: the card's part,
+    then the CPU child left running; (the pending child, launches,
+    seconds)."""
+    import torch
+
+    from peppa_tpu_torch import export, serving, serving_bench
+    from peppa_tpu_torch.ops.cuda import attention, loss
+
+    def exported_encode(real):
+        def run(self, kind, batch):
+            before = attention.mha_attention.launches
+            y = real(self, kind, batch)
+            calls["exported"].append(
+                (kind, attention.mha_attention.launches - before))
+            return y
+        return run
+
+    undo = [_patch(serving.EncoderService, "_audio_fn",
+                   _calls(calls, "audio_fn")),
+            _patch(export.ExportedEncoders, "encode", exported_encode)]
+    undo += [_patch({"attention": attention, "loss": loss}[m], name,
+                    _count_on_card(calls)) for m, name in PLAIN_VERSIONS]
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        pending = serving_bench.start(SERVING_BENCH_REQUESTS,
+                                      SERVING_BENCH_BATCH)
+    finally:
+        for u in reversed(undo):
+            u()
+    torch.cuda.synchronize()
+    return pending, _counts(), time.perf_counter() - t0
+
+
+def _bench_main(record: dict, inputs: dict) -> tuple:
+    """`bench.main()` at BENCH_SMOKE_ENV's sizes, its encoded batches,
+    FLOP passes, train micro-steps and plain versions on the card counted
+    in `record`, the first CUDA inputs of each kernel shape kept in
+    `inputs`; its default packs removed after; (its JSON line, launches,
+    seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from peppa_tpu_torch import bench
+    from peppa_tpu_torch.models import wav2vec2
+    from peppa_tpu_torch.ops import loss as loss_op
+    from peppa_tpu_torch.ops.cuda import attention, loss
+
+    saved = {k: os.environ.get(k) for k in BENCH_SMOKE_ENV}
+    os.environ.update(BENCH_SMOKE_ENV)
+    undo = [_patch(bench, "encode_score", _calls(record, "encode_score")),
+            _patch(bench, "model_flops_per_pair",
+                   _calls(record, "flop_passes")),
+            _patch(bench, "train_step", _calls(record, "train_steps")),
+            _patch(wav2vec2, "mha_attention",
+                   _kept_inputs(inputs, "attention")),
+            _patch(loss_op, "fused_triplet_loss",
+                   _kept_inputs(inputs, "triplet_loss"))]
+    undo += [_patch({"attention": attention, "loss": loss}[m], name,
+                    _count_on_card(record)) for m, name in PLAIN_VERSIONS]
+    out = io.StringIO()
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        for u in reversed(undo):
+            u()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shape = bench.clip_shape(bench.default_config())
+        for i16 in (False, True):  # the default packs, in $TMPDIR
+            path = bench.pack_path(*shape, i16)
+            if os.path.exists(path):
+                os.remove(path)
+    print(out.getvalue().rstrip())
+    return json.loads(out.getvalue().strip().splitlines()[-1]), launches, \
+        seconds
+
+
+def run_bench(report: dict, card: str) -> None:
+    """Phase 10 (module doc): `peppa_tpu_torch.serving_bench` (--requests
+    2 --batch 8) up to its CPU child; while the child runs,
+    `peppa_tpu_torch.bench.main()` at smoke sizes (BENCH_SMOKE_ENV), its
+    JSON line checked, and kernels 1 and 3 held against their plain
+    versions on the bench's first inputs of each shape and timed at
+    B=256; then the child's embeddings against the card's artifact."""
+    import math
+
+    import torch
+
+    from peppa_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    calls = {"audio_fn": 0, "exported": [], "plain": 0}
+    pending, serve_launches, card_s = _serving_bench_start(calls)
+    try:
+        record = {"encode_score": 0, "flop_passes": 0, "train_steps": 0,
+                  "plain": 0}
+        inputs: dict = {}
+        line, launches, bench_s = _bench_main(record, inputs)
+        print(f"10 bench: {bench_s:.1f} s; {record['encode_score']} batches "
+              f"encoded and scored, {record['flop_passes']} FLOP pass, "
+              f"{record['train_steps']} train micro-steps; launches "
+              f"{launches}; plain versions on the card {record['plain']}; "
+              f"peak memory: encode {line['encode_peak_memory_gib']:.2f} "
+              f"GiB, train recipe {line['train_peak_memory_gib']:.2f} GiB "
+              f"({card})")
+        bad = [p for p, x in _numbers(line) if not math.isfinite(x)]
+        host_fed = line["host_fed"]
+        card_numbers = (line["pct_of_chip_peak"],
+                        line["model_tflop_per_pair"],
+                        line["chip_peak_tflops_band"][0],
+                        line["device"]["power_limit_w"],
+                        line["encode_peak_memory_gib"],
+                        line["train_peak_memory_gib"],
+                        line["train_clips_per_sec"])
+        if (set(line) != set(BENCH_KEYS) or bad
+                or any(x is None or not x > 0 for x in card_numbers)
+                or line["vs_baseline"] is not None
+                or line["train_recipe"] != bench.TRAIN_RECIPE
+                or sorted(host_fed) != ["cold", "f32", "int16"]
+                or any(len(s["windows"]) != 3 for s in host_fed.values())
+                or host_fed["cold"].get("first_pass_cold") is None
+                or line["device"]["name"] != torch.cuda.get_device_name(0)):
+            raise AssertionError(f"10 bench line: {line}; not finite {bad}")
+        # kernel 1 12 times per encoded batch and FLOP pass (the audio
+        # tower at B=1), kernel 3 once per encoded batch and train
+        # micro-step (the recipe's dropout 0.1 takes the plain attention
+        # route: kernel 2 none)
+        want = {"attention_fwd": DP_LAYERS * (record["encode_score"]
+                                              + record["flop_passes"]),
+                "attention_bwd": 0,
+                "triplet_loss": record["encode_score"]
+                + record["train_steps"]}
+        env = {k: int(v) for k, v in BENCH_SMOKE_ENV.items() if v.isdigit()}
+        # at least: the encode's runs, then per variant its first forward
+        # and 3 windows of 4 batches, and the cold variant's pass over the
+        # pack
+        least = ((1 + env["BENCH_REPEATS"]) * env["BENCH_K"]
+                 + 3 * (1 + 4 * env["BENCH_HOST_WINDOWS"])
+                 + 192 // BENCH_HOST_B)
+        if launches != want or record["plain"] \
+                or record["flop_passes"] != 1 \
+                or record["train_steps"] != 15 \
+                or record["encode_score"] < least:
+            raise AssertionError(f"10 bench: launches {launches} != {want}, "
+                                 f"{record}")
+        report["launches"]["bench"] = launches
+        shapes = sorted((key[0], key[1][0]) for key in inputs)
+        print(f"10 bench: kept inputs (kernel, B) {shapes}")
+        if not {("attention", BENCH_B), ("triplet_loss", BENCH_B),
+                ("triplet_loss", BENCH_HOST_B)} <= set(shapes):
+            raise AssertionError(f"10 bench: kept {shapes}")
+        _hold_path_shapes(report, inputs, tag="bench_shapes")
+        rows = _bench_kernel_rows(inputs)
+        served = pending.finish()
+    finally:
+        pending.close()
+    print(json.dumps(served))
+    trip = served["export_roundtrip"]
+    audio_calls = calls["audio_fn"] + sum(
+        1 for kind, _ in calls["exported"] if kind == "audio")
+    print(f"10 serving bench: card part {card_s:.1f} s, then the CPU child "
+          f"{trip['cpu_child_s']:.1f} s (beside the bench); warm-up "
+          f"{served['warmup_s']} s; launches {serve_launches} for "
+          f"{audio_calls} audio forwards; artifact calls (kind, kernel 1 "
+          f"launches) {calls['exported']}; plain versions on the card "
+          f"{calls['plain']}; export {trip['export_s']} s, load "
+          f"{trip['load_s']} s ({card})")
+    for row in served["latency"]:
+        print(f"10 serving bench bucket {row['bucket_s']} s: audio "
+              f"{row['audio_ms']} ms, video {row['video_ms']} ms ({card})")
+    live = trip["exported_cuda_vs_live"]
+    cpu = trip["exported_cpu_vs_exported_cuda"]
+    print(f"10 serving bench: the card's artifact against live {live}; the "
+          f"CPU child's against the card's {cpu} (cosine above "
+          f"{SERVING_BENCH_COS})")
+    if (serve_launches != {"attention_fwd": DP_LAYERS * audio_calls,
+                           "attention_bwd": 0, "triplet_loss": 0}
+            or calls["plain"]
+            or sorted(calls["exported"]) != [("audio", DP_LAYERS),
+                                             ("video", 0)]
+            or any(live[kind]["max_abs"] != 0.0 for kind in live)
+            or any(not cpu[kind]["min_cos"] > SERVING_BENCH_COS
+                   for kind in cpu)
+            or len(served["latency"]) * 2 != served["n_programs"]):
+        raise AssertionError(f"10 serving bench: launches {serve_launches}, "
+                             f"calls {calls}, record {served}")
+    report["launches"]["serving_bench"] = serve_launches
+    for kernel, row in rows.items():
+        report.setdefault(kernel, {"max_abs_err": 0.0}).setdefault(
+            "shapes", []).append(row)
+    report["bench"] = {"line": line, "bench_s": bench_s,
+                       "serving": served, "serving_card_s": card_s,
+                       "kernel_rows": rows, "calls": dict(record),
+                       "phase_s": time.perf_counter() - t_phase}
+    print(f"10: phase in {report['bench']['phase_s']:.1f} s (the serving "
+          f"bench's card part {card_s:.1f} s, then the bench "
+          f"{bench_s:.1f} s beside its CPU child)")
+
+
 def first_step() -> int:
     """`chip_smoke.py --first_step`: a fresh process's first micro-steps
     (phase 4a's configuration: bf16, `audio.dropout: 0.0`, full width and
@@ -5838,7 +6276,7 @@ def main() -> int:
     parser.add_argument("--phases", nargs="+", metavar="PHASE",
                         choices=("2", "3", "3q", "3x", "4a", "4b", "4e", "4p",
                                  "4t", "4r", "4s", "4c", "4d", "6q", "6", "7",
-                                 "8", "9", "5"),
+                                 "8", "9", "10", "5"),
                         help="run only these phases (default: all)")
     args = parser.parse_args()
 
@@ -5876,12 +6314,13 @@ def main() -> int:
               ("4r", lambda: run_remat(report, card)),
               ("4s", lambda: run_ablation_sweep(report, card, root)),
               ("4c", lambda: run_trainer(report, card)),
-              ("4d", lambda: run_pipeline(report, card, root)),
+              ("4d", lambda: run_pipeline(report, card, root, data)),
               ("6q", lambda: run_quant_quality(report, card, root)),
-              ("6", lambda: run_evaluation(report, card, root)),
+              ("6", lambda: run_evaluation(report, card, root, data)),
               ("7", lambda: run_results(report, card, root)),
-              ("8", lambda: run_prep(report, card, root)),
+              ("8", lambda: run_prep(report, card, root, data)),
               ("9", lambda: run_soak(report, card, root)),
+              ("10", lambda: run_bench(report, card)),
               ("5", run_card_vs_cpu))
     chosen = set(args.phases or [p for p, _ in phases])
     if "7" in chosen and "6" not in chosen:
@@ -5893,7 +6332,16 @@ def main() -> int:
         chosen.add("4d")
     report: dict = {"launches": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_data_")  # 4d's tree, for 6
+    data: dict = {}  # 4d's tree and 8's raw episodes, beside the phases
+    jobs: list = []
     try:
+        if chosen & {"4d", "6", "8"}:
+            data["job"] = _spawn(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--write_data",
+                 os.path.join(root, "data") if chosen & {"4d", "6"} else "-",
+                 os.path.join(root, "prep", "data") if "8" in chosen
+                 else "-"], jobs)
         for phase, fn in phases:
             if phase not in chosen:
                 continue
@@ -5901,6 +6349,10 @@ def main() -> int:
             fn()
             print(f"phase {phase} done in {time.perf_counter() - t0:.1f} s")
     finally:
+        for proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(root, ignore_errors=True)
     print(f"chip_smoke: phases {sorted(chosen)} done in "
           f"{time.perf_counter() - T_START:.1f} s in all")
@@ -5911,7 +6363,7 @@ def main() -> int:
                                    "triplet_loss", "serve_int8", "export",
                                    "train_dp", "tensor_parallel", "remat",
                                    "sweep", "ops", "quant_quality", "soak",
-                                   *TRAIN_TAGS.values())},
+                                   "bench", *TRAIN_TAGS.values())},
                          default=str))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -5953,6 +6405,7 @@ def main() -> int:
                       "pipeline": report["pipeline"],
                       "quant_quality": report["quant_quality"],
                       "soak": report["soak"], "ops": report["ops"],
+                      "bench": report["bench"],
                       "evaluation": report["evaluation"],
                       "results": report["results"],
                       "prep": report["prep"],
@@ -5965,6 +6418,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--write_data"]:  # files, beside the phases
+        sys.exit(write_data(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve_artifacts"]:  # phase 3x's second process
         sys.exit(serve_artifacts(sys.argv[2:]))
     if sys.argv[1:2] == ["--dp_rank"]:  # a rank of phase 4p (b)

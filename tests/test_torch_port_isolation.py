@@ -30,7 +30,7 @@ print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 30, names
 for module in ("ablation_sweep", "soak_run", "soak_report",
-               "quant_quality"):
+               "quant_quality", "bench", "serving_bench"):
     assert "peppa_tpu_torch." + module in names, names
 """
 
