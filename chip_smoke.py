@@ -763,14 +763,15 @@ def check_loss(report: dict) -> None:
     from peppa_tpu_torch.ops.cuda.loss import (
         _launch, fused_triplet_loss, fused_triplet_loss_and_grad_plain,
         fused_triplet_loss_plain)
+    from peppa_tpu_torch.utils.profiling import counters
 
     worst = 0.0
     for tag, v, a in _loss_cases():
         b = v.shape[0]
-        before = fused_triplet_loss.launches
+        before = counters()["fused_triplet_loss.launches"]
         alone = fused_triplet_loss(v, a, 0.2)
         got = _launch(v, a, 0.2, grad=True)
-        launches = fused_triplet_loss.launches - before
+        launches = counters()["fused_triplet_loss.launches"] - before
         want = fused_triplet_loss_and_grad_plain(v, a, 0.2)
         torch.cuda.synchronize()
         errs = [abs(alone.item() - want[0].item())] + [
@@ -948,24 +949,37 @@ def _clip_batch(rng, cfg, b: int, seconds: float):
                                    dtype=np.int32))
 
 
-def _reset_counts() -> None:
-    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
-                                                    mha_attention_bwd)
-    from peppa_tpu_torch.ops.cuda.loss import fused_triplet_loss
+# the port's counters (`utils/profiling.py`) read by `_counts` and
+# `_int8_counts`, and their values at the last `_reset_counts()`
+KERNEL_COUNTERS = {"attention_fwd": "mha_attention.launches",
+                   "attention_bwd": "mha_attention_bwd.launches",
+                   "triplet_loss": "fused_triplet_loss.launches"}
+INT8_COUNTERS = {"int8_conv": "int8_conv.calls",
+                 "int8_matmul": "int8_matmul.calls"}
+DATA_COUNTERS = {"served": "NativeBatchLoader.served",
+                 "side_stream_copies": "Prefetcher.side_stream_copies"}
+_COUNTS_AT_RESET: dict = {}
 
-    mha_attention.launches = 0
-    mha_attention_bwd.launches = 0
-    fused_triplet_loss.launches = 0
+
+def _reset_counts() -> None:
+    """`_counts` and `_int8_counts` count from here."""
+    from peppa_tpu_torch.utils.profiling import counters
+
+    _COUNTS_AT_RESET.clear()
+    _COUNTS_AT_RESET.update(counters())
+
+
+def _since_reset(names: dict) -> dict:
+    from peppa_tpu_torch.utils.profiling import counters
+
+    now = counters()
+    return {key: now[name] - _COUNTS_AT_RESET.get(name, 0)
+            for key, name in names.items()}
 
 
 def _counts() -> dict:
-    from peppa_tpu_torch.ops.cuda.attention import (mha_attention,
-                                                    mha_attention_bwd)
-    from peppa_tpu_torch.ops.cuda.loss import fused_triplet_loss
-
-    return {"attention_fwd": mha_attention.launches,
-            "attention_bwd": mha_attention_bwd.launches,
-            "triplet_loss": fused_triplet_loss.launches}
+    """Kernel launches since `_reset_counts()`."""
+    return _since_reset(KERNEL_COUNTERS)
 
 
 def run_slice(report: dict, card: str) -> None:
@@ -1084,14 +1098,9 @@ INT8_PARTS = {"quantize": ("absmax_weight_scale", "act_scale",
               "dequantize": ("dequantize",)}
 
 
-def _int8_counts(reset: bool = False) -> dict:
-    from peppa_tpu_torch.ops import quant
-
-    out = {"int8_conv": quant.int8_conv.calls,
-           "int8_matmul": quant.int8_matmul.calls}
-    if reset:
-        quant.int8_conv.calls = quant.int8_matmul.calls = 0
-    return out
+def _int8_counts() -> dict:
+    """int8 products since `_reset_counts()`."""
+    return _since_reset(INT8_COUNTERS)
 
 
 def _wrap_int8(wrapper):
@@ -1351,7 +1360,6 @@ def run_slice_int8(report: dict, card: str, root: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    _int8_counts(reset=True)
     t0 = time.perf_counter()
     svc.warmup()
     undo = _wrap_int8(_keep_int8(kept))  # the first real inputs
@@ -1542,7 +1550,7 @@ def serve_artifacts(args) -> int:
             items = {kind: [z[k] for k in sorted(z.files)
                             if k.startswith(kind)]
                      for kind in ("audio", "video")}
-        attention.mha_attention.launches = 0
+        _reset_counts()
         a = enc.embed_audio(items["audio"])
         v = enc.embed_video(items["video"])
         torch.cuda.synchronize()
@@ -1551,7 +1559,7 @@ def serve_artifacts(args) -> int:
             "op_nodes": ops,
             "peak_memory_gib": (torch.cuda.max_memory_allocated() - base)
             / 2**30, "calls": dict(calls),
-            "attention_fwd": attention.mha_attention.launches})
+            "attention_fwd": _counts()["attention_fwd"]})
         np.savez(emb_path, audio=a, video=v)
     for undo in undos:
         undo()
@@ -3892,7 +3900,6 @@ def run_pipeline(report: dict, card: str, root: str, data: dict) -> None:
     from peppa_tpu_torch.ops.cuda import attention, loss
     from peppa_tpu_torch.training import loop
     from peppa_tpu_torch.training.step import train_step
-    from peppa_tpu_torch.utils.prefetch import Prefetcher
 
     undo = []
     try:
@@ -3928,16 +3935,13 @@ def run_pipeline(report: dict, card: str, root: str, data: dict) -> None:
         random.seed(0)  # the jitter of the train windows (global random)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        NativeBatchLoader.served = 0
-        Prefetcher.side_stream_copies = 0
         _reset_counts()
         t0 = time.perf_counter()
         trainer = loop.Trainer(cfg, log_dir=os.path.join(root, "logs"))
         state = trainer.fit(data)
         fit_s = time.perf_counter() - t0
         launches = _counts()
-        served, copies = NativeBatchLoader.served, \
-            Prefetcher.side_stream_copies
+        served, copies = _since_reset(DATA_COUNTERS).values()
         peak = torch.cuda.max_memory_allocated() / 2**30
         clips_per_s = trainer.timer.items_per_sec
         (sanity_s, _), (val_s, metrics) = record["validation"]
@@ -4110,7 +4114,6 @@ def run_quant_quality(report: dict, card: str, root: str) -> None:
 
     from peppa_tpu_torch.models import wav2vec2
     from peppa_tpu_torch.ops import loss as loss_op
-    from peppa_tpu_torch.ops import quant
     from peppa_tpu_torch.ops.cuda import attention, loss
     from peppa_tpu_torch.quant_quality import quant_quality
 
@@ -4125,7 +4128,6 @@ def run_quant_quality(report: dict, card: str, root: str) -> None:
                    _kept_inputs(inputs, "triplet_loss"))]
     undo += [_patch(modules[m], name, _count_on_card(record))
              for m, name in PLAIN_VERSIONS]
-    products = quant.int8_conv.calls + quant.int8_matmul.calls
     _reset_counts()
     t0 = time.perf_counter()
     try:
@@ -4135,7 +4137,7 @@ def run_quant_quality(report: dict, card: str, root: str) -> None:
             u()
     seconds = time.perf_counter() - t0
     launches = _counts()
-    products = quant.int8_conv.calls + quant.int8_matmul.calls - products
+    products = sum(_int8_counts().values())
     print(f"6q: quant_quality over phase 4d's run (the synthetic episode "
           f"tree, seeded weights, 8 micro-steps: not a production reading) "
           f"in {seconds:.1f} s; {batches} validation batches a row; "
@@ -4645,15 +4647,16 @@ def _write_realign_tree(data_dir: str, rng, per_episode: int,
 def _counted_encode(record: dict):
     """A wrapper of `grsa._encode` that appends (tap, batches, kernel 1
     launches) of each call to record["encode"]."""
-    from peppa_tpu_torch.ops.cuda.attention import mha_attention
+    from peppa_tpu_torch.utils.profiling import counters
 
     def wrap(real):
         def run(model, batches, tap="embedding", pool_time=False):
             batches = list(batches)
-            before = mha_attention.launches
+            before = counters()["mha_attention.launches"]
             out = real(model, batches, tap, pool_time)
-            record["encode"].append((tap, len(batches),
-                                     mha_attention.launches - before))
+            record["encode"].append((
+                tap, len(batches),
+                counters()["mha_attention.launches"] - before))
             return out
         return run
     return wrap
@@ -5917,13 +5920,14 @@ def _serving_bench_start(calls: dict):
 
     from peppa_tpu_torch import export, serving, serving_bench
     from peppa_tpu_torch.ops.cuda import attention, loss
+    from peppa_tpu_torch.utils.profiling import counters
 
     def exported_encode(real):
         def run(self, kind, batch):
-            before = attention.mha_attention.launches
+            before = counters()["mha_attention.launches"]
             y = real(self, kind, batch)
             calls["exported"].append(
-                (kind, attention.mha_attention.launches - before))
+                (kind, counters()["mha_attention.launches"] - before))
             return y
         return run
 

@@ -15,6 +15,9 @@ layer-drop masks as the first run (from copies of the generators, see
 (`layers.recomputing`).  A call that records no graph (`eval_step`,
 `EncoderService`, the export's tracing: `torch.no_grad()` or
 `torch.inference_mode()`) runs the tower as it is.
+
+Each tower call is a span, `model.video` or `model.audio`
+(`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from peppa_tpu_torch.models.video3d import R3DEncoder
 from peppa_tpu_torch.models.wav2vec2 import (ConvPositionalEmbedding,
                                              Wav2Vec2Config, Wav2Vec2Encoder)
 from peppa_tpu_torch.utils.device import resolve_device
+from peppa_tpu_torch.utils.profiling import span
 
 
 def dtype_of(precision: str) -> torch.dtype:
@@ -116,9 +120,10 @@ class PeppaPig(nn.Module):
                      ) -> torch.Tensor:
         """Embed (B, T, H, W, C) video to the shared 512-d space."""
         args = (video, frame_lengths, train, tap)
-        if self.config.tpu.remat_video and torch.is_grad_enabled():
-            return _rematted(self.video_encoder, args)
-        return self.video_encoder(*args)
+        with span("model.video"):
+            if self.config.tpu.remat_video and torch.is_grad_enabled():
+                return _rematted(self.video_encoder, args)
+            return self.video_encoder(*args)
 
     def encode_audio(self, audio: torch.Tensor,
                      sample_lengths: Optional[torch.Tensor] = None,
@@ -132,9 +137,10 @@ class PeppaPig(nn.Module):
         (None: `generator`)."""
         args = (audio, sample_lengths, not train, tap, mask_padding)
         generators = (generator, layerdrop_generator)
-        if self.config.tpu.remat_audio and torch.is_grad_enabled():
-            return _rematted(self.audio_encoder, args, generators)
-        return self.audio_encoder(*args, *generators)
+        with span("model.audio"):
+            if self.config.tpu.remat_audio and torch.is_grad_enabled():
+                return _rematted(self.audio_encoder, args, generators)
+            return self.audio_encoder(*args, *generators)
 
     def forward(self, batch: Union[ClipBatch, TripletBatch],
                 train: bool = False,

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from peppa_tpu_torch.data.types import ClipBatch
+from peppa_tpu_torch.utils.profiling import count
 
 
 @functools.lru_cache(maxsize=1)
@@ -114,10 +115,9 @@ class NativeBatchLoader:
     worker pool (`n_threads` threads, up to `depth` batches ahead).
 
     `plan` holds one (item indices, (pad_t, pad_h, pad_w, pad_c, pad_s))
-    entry per batch.  `served` counts the batches every loader of the
-    process has handed out."""
-
-    served = 0
+    entry per batch.  The counter `NativeBatchLoader.served`
+    (`utils/profiling.py`) counts the batches every loader of the process
+    has handed out."""
 
     def __init__(self, pack: NativePack, plan: Sequence,
                  n_threads: int = 4, depth: int = 4):
@@ -162,7 +162,7 @@ class NativeBatchLoader:
                 return
             samples = self._empty((b,), torch.int32)
             samples.copy_(asamples)
-            NativeBatchLoader.served += 1
+            count("NativeBatchLoader.served")
             yield ClipBatch(video=video, audio=audio,
                             video_duration=vdur, audio_duration=adur,
                             video_frames=vframes, audio_samples=samples)

@@ -59,18 +59,22 @@ keep one opaque node per call that dispatches by device when it runs:
 
 `mha_attention` under autograd calls `mha_attention_train`, else
 `mha_attention`.  Importing this module registers the ops; it imports only
-torch and ctypes.  On CPU tensors the ops run the plain versions; on CUDA
-tensors they launch the kernels or raise.
+torch, ctypes and the port's counters.  On CPU tensors the ops run the
+plain versions; on CUDA tensors they launch the kernels or raise.  The
+counters `mha_attention.launches` and `mha_attention_bwd.launches`
+(`utils/profiling.py`) count the kernels' launches (CPU calls do not
+count).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import List, Optional, Tuple
 
 import torch
+
+from peppa_tpu_torch.utils.profiling import count
 
 NEG_INF = -1e30  # masked-key score, as the TPU kernel's
 LOG2E = 1.4426950408889634  # the bf16 kernels' log-sum-exp is in log2 units
@@ -81,9 +85,6 @@ _HEAD_DIMS = (16, 32, 64)
 # resident blocks on each of an H100's 132 SMs
 _F32_ROWS = 64
 _F32_BLOCKS = 4 * 132
-# the launch counters are read while worker threads launch (the aligner's
-# pool, preprocess/forced_align.py::realign): each increment holds the lock
-_count_lock = threading.Lock()
 
 
 def _masked_logits(q: torch.Tensor, k: torch.Tensor,
@@ -261,8 +262,7 @@ def _launch(q, k, v, lengths, scale, with_lse: bool = False
                             None if scratch is None else scratch.data_ptr())
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    with _count_lock:
-        mha_attention.launches += 1
+    count("mha_attention.launches")
     return out, lse
 
 
@@ -298,8 +298,7 @@ def _launch_bwd(q, k, v, do, lse, out, lengths, scale
     if err != 0:
         raise RuntimeError(
             f"attention backward kernel launch failed: cudaError {err}")
-    with _count_lock:
-        mha_attention_bwd.launches += 1
+    count("mha_attention_bwd.launches")
     return dq, dk, dv
 
 
@@ -326,9 +325,6 @@ def mha_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _device_of(q) == "cpu":
         return mha_attention_bwd_plain(q, k, v, do, lengths, scale)
     return _launch_bwd(q, k, v, do, lse, out, lengths, scale)
-
-
-mha_attention_bwd.launches = 0  # kernel launches (CPU calls do not count)
 
 
 # The dispatcher ops (module doc).  Registered through
@@ -440,6 +436,3 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return attention_train_op(q, k, v, lengths, float(scale))[0]
     return attention_op(q, k, v, lengths, float(scale))
-
-
-mha_attention.launches = 0  # forward kernel launches (CPU calls do not count)

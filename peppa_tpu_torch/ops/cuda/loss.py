@@ -17,7 +17,9 @@ shapes, and its autograd (`torch.library.register_autograd`) only scales
 the saved gradients by the output gradient and casts them to v's and a's
 dtypes.  Without autograd it runs the plain loss on the CPU and the kernel
 without its gradient on the card.  On CUDA tensors it launches the kernel
-or raises.
+or raises.  The counter `fused_triplet_loss.launches` (`utils/profiling.py`)
+counts the calls that launched it: one launch up to B = 64, two or three
+beyond (CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+
+from peppa_tpu_torch.utils.profiling import count
 
 
 def _norm_rows(x: torch.Tensor) -> torch.Tensor:
@@ -138,7 +142,7 @@ def _launch(v: torch.Tensor, a: torch.Tensor, margin: float, grad: bool
              float(margin), torch.cuda.current_stream(v.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"triplet-loss kernel launch failed: cudaError {err}")
-    fused_triplet_loss.launches += 1
+    count("fused_triplet_loss.launches")
     return buf[0], d_v, d_a
 
 
@@ -202,8 +206,3 @@ def fused_triplet_loss(v: torch.Tensor, a: torch.Tensor,
     if v.device.type == "cpu":
         return fused_triplet_loss_plain(v, a, margin)
     return _launch(v, a, margin, grad=False)[0]
-
-
-# calls that launched the kernel: one launch up to B = 64, two or three
-# beyond (CPU calls do not count)
-fused_triplet_loss.launches = 0

@@ -26,22 +26,23 @@ integers, and slices the output: R(2+1)D-18 has N = 45, 230, 460, 921 and
 K = 147, 690, 1380, 2763.  A CUDA tensor never reaches the plain version.
 The scales stay on the device: no host sync per layer.
 
-`int8_conv.calls` and `int8_matmul.calls` count the products on either
-device (the coverage tests and `chip_smoke.py` phase 3q read them).
+The counters `int8_conv.calls` and `int8_matmul.calls`
+(`utils/profiling.py`) count the products on either device (the coverage
+tests and `chip_smoke.py` phase 3q read them).
 """
 
 from __future__ import annotations
 
 import math
-import threading
 from typing import Sequence
 
 import torch
 import torch.distributed as td
 import torch.nn.functional as F
 
+from peppa_tpu_torch.utils.profiling import count
+
 Q_MAX = 127.0
-_count_lock = threading.Lock()
 
 
 def _scale_of(amax: torch.Tensor) -> torch.Tensor:
@@ -181,8 +182,7 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     """Quantized drop-in for `F.conv{1,2,3}d(x, w, None, stride, padding)`
     on channels-first `x` and float (O, C, *kernel) `w`; symmetric
     `padding` per spatial axis."""
-    with _count_lock:
-        int8_conv.calls += 1
+    count("int8_conv.calls")
     w_scale = absmax_weight_scale(w)
     wq = quantize_int8(w, w_scale)
     s_x = act_scale(x)
@@ -195,9 +195,6 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     return dequantize(acc, scale, out_dtype)
 
 
-int8_conv.calls = 0
-
-
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
                 out_dtype: torch.dtype = torch.bfloat16,
                 group=None) -> torch.Tensor:
@@ -207,8 +204,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     the scales are the whole tensors' (the MAX over the group) and the
     int32 accumulators are summed over the group before the dequantize,
     so every rank gets the unsplit product bit for bit."""
-    with _count_lock:
-        int8_matmul.calls += 1
+    count("int8_matmul.calls")
     w_scale = absmax_weight_scale(w, group)
     wq = quantize_int8(w, w_scale)
     s_x = act_scale(x, group)
@@ -221,6 +217,3 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
         acc = acc.contiguous()
         td.all_reduce(acc, op=td.ReduceOp.SUM, group=group)
     return dequantize(acc, s_x * w_scale.reshape(-1), out_dtype)
-
-
-int8_matmul.calls = 0

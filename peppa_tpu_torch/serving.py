@@ -25,6 +25,13 @@ row of ranks encodes its batch_size / data rows with the whole model (the
 parameters replicated, as the JAX service replicates them) and
 `all_gather_rows` returns every row to every rank, so each rank's result
 is the whole (N, 512) array.  batch_size must divide over the data axis.
+
+Each call is a root span (`serve.embed_video`, `serve.embed_audio`,
+`serve.similarity`) over `serve.pad` (canonicalising, grouping and padding
+on the host), then per padded batch `serve.h2d`, `serve.encode` and
+`serve.d2h` (`utils/profiling.py`).  The counters `serve.rows_real.<tower>`
+(clips asked for) and `serve.rows_run.<tower>` (rows the tower ran,
+padding and warm-up included) count the work.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from peppa_tpu_torch.config import Config
 from peppa_tpu_torch.ops.similarity import cosine_matrix
 from peppa_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from peppa_tpu_torch.utils.device import resolve_device
+from peppa_tpu_torch.utils.profiling import count, span
 from peppa_tpu_torch.utils.request_batching import (canonicalize_video,
                                                     group_by_bucket,
                                                     padded_chunk)
@@ -113,16 +121,23 @@ class EncoderService:
         """`encode` of a padded batch; over a mesh, of this data row's
         rows, then every row gathered."""
         with torch.inference_mode():
-            x = torch.from_numpy(batch).to(self.device)
-            if self.mesh is None:
-                return encode(x).float().cpu().numpy()
-            y = encode(shard_batch(x, self.mesh)).float()
-            return all_gather_rows(y, self.mesh).cpu().numpy()
+            with span("serve.h2d"):
+                x = torch.from_numpy(batch).to(self.device)
+            with span("serve.encode"):
+                if self.mesh is None:
+                    y = encode(x)
+                else:
+                    y = all_gather_rows(
+                        encode(shard_batch(x, self.mesh)).float(), self.mesh)
+            with span("serve.d2h"):
+                return y.float().cpu().numpy()
 
     def _audio_fn(self, batch: np.ndarray) -> np.ndarray:
+        count("serve.rows_run.audio", len(batch))
         return self._encode(self.model.encode_audio, batch)
 
     def _video_fn(self, batch: np.ndarray) -> np.ndarray:
+        count("serve.rows_run.video", len(batch))
         return self._encode(self.model.encode_video, batch)
 
     def warmup(self) -> None:
@@ -140,32 +155,43 @@ class EncoderService:
                       bucket_of: Callable[[np.ndarray], int],
                       fn: Callable[[np.ndarray], np.ndarray]) -> np.ndarray:
         out = np.zeros((len(items), 512), np.float32)
-        for size, idxs in group_by_bucket(items, bucket_of).items():
+        with span("serve.pad"):
+            groups = group_by_bucket(items, bucket_of)
+        for size, idxs in groups.items():
             for lo in range(0, len(idxs), self.batch_size):
                 chunk = idxs[lo:lo + self.batch_size]
-                batch = padded_chunk(items, chunk, size, self.batch_size,
-                                     items[chunk[0]].shape[1:],
-                                     items[chunk[0]].dtype)
+                with span("serve.pad"):
+                    batch = padded_chunk(items, chunk, size, self.batch_size,
+                                         items[chunk[0]].shape[1:],
+                                         items[chunk[0]].dtype)
                 out[chunk] = fn(batch)[:len(chunk)]
         return out
 
     def embed_audio(self, waveforms: Sequence[np.ndarray]) -> np.ndarray:
         """(S_i,) float32 waveforms -> (N, 512) unit-norm embeddings."""
-        waveforms = [np.asarray(x, np.float32).reshape(-1) for x in waveforms]
-        return self._run_bucketed(
-            waveforms, lambda x: self._audio_bucket(x.shape[0]),
-            self._audio_fn)
+        with span("serve.embed_audio"):
+            with span("serve.pad"):
+                waveforms = [np.asarray(x, np.float32).reshape(-1)
+                             for x in waveforms]
+            count("serve.rows_real.audio", len(waveforms))
+            return self._run_bucketed(
+                waveforms, lambda x: self._audio_bucket(x.shape[0]),
+                self._audio_fn)
 
     def embed_video(self, clips: Sequence[np.ndarray]) -> np.ndarray:
         """(T_i, H, W, 3) float [0, 1] or uint8 clips -> (N, 512)."""
-        clips = [canonicalize_video(x) for x in clips]
-        return self._run_bucketed(
-            clips, lambda x: self._video_bucket(x.shape[0]), self._video_fn)
+        with span("serve.embed_video"):
+            with span("serve.pad"):
+                clips = [canonicalize_video(x) for x in clips]
+            count("serve.rows_real.video", len(clips))
+            return self._run_bucketed(
+                clips, lambda x: self._video_bucket(x.shape[0]),
+                self._video_fn)
 
     def similarity(self, video_emb: np.ndarray,
                    audio_emb: np.ndarray) -> np.ndarray:
         """Cosine matrix (len(video_emb), len(audio_emb)), float32."""
-        with torch.inference_mode():
+        with span("serve.similarity"), torch.inference_mode():
             v = torch.as_tensor(np.asarray(video_emb), device=self.device)
             a = torch.as_tensor(np.asarray(audio_emb), device=self.device)
             return cosine_matrix(v, a).cpu().numpy()

@@ -18,8 +18,9 @@ Mirrors peppa_tpu/training/loop.py:
   `val_check_interval` micro-steps and at the end;
 - `PEPPA_PROFILE_DIR` and `PEPPA_PROFILE_STEPS` = N: a `torch.profiler`
   trace (`utils/profiling.py::trace`) of micro-steps N to 2N - 1, each a
-  `train_step` range, written to the directory once the device has
-  finished them (or when the fit ends first);
+  `train.step` range over its phases' ranges (`training/step.py`), and
+  the `data.wait` ranges between them, written to the directory once the
+  device has finished them (or when the fit ends first);
 - budgets: `max_steps` (else `optimizer.t_total`) optimizer steps,
   `max_time`, `max_epochs`, `limit_train_batches`, `limit_val_batches`;
 - `checkpoints/preempted.ckpt` on a preemption signal;
@@ -80,8 +81,8 @@ from peppa_tpu_torch.training.step import train_step
 from peppa_tpu_torch.utils import dist
 from peppa_tpu_torch.utils.device import resolve_device
 from peppa_tpu_torch.utils.prefetch import Prefetcher
-from peppa_tpu_torch.utils.profiling import (StepTimer, annotate,
-                                             host_rss_bytes, trace)
+from peppa_tpu_torch.utils.profiling import (StepTimer, host_rss_bytes,
+                                             trace)
 
 
 def parse_max_time(value: Optional[str]) -> Optional[float]:
@@ -273,9 +274,8 @@ class Trainer:
                         profile.enter_context(trace(profile_dir))
                         if dev.type == "cuda":  # done before it is written
                             profile.callback(torch.cuda.synchronize, dev)
-                    with annotate("train_step"):
-                        state, metrics = train_step(state, batch,
-                                                    step_seed_base, dev)
+                    state, metrics = train_step(state, batch,
+                                                step_seed_base, dev)
                     micro_step += 1
                     if profile_dir and micro_step == 2 * profile_steps:
                         profile.close()

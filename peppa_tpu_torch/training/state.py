@@ -34,6 +34,11 @@ backward passes of the same rows differ in the last bits (cuDNN's weight
 gradients add with atomics), and the row's replicated parameters must
 take one step.
 
+`apply_gradients` is the spans `train.accumulate` (the fold),
+`train.all_reduce` (over a mesh) and, on an optimizer step,
+`train.optimizer` (the hand-off to `.grad`, BertAdam and the cleared
+buffer; `utils/profiling.py`).
+
 `state_dict()` / `load_state_dict()` carry the whole of it: the model's
 parameters and buffers (BatchNorm running statistics included), BertAdam's
 moments and its per-group optimizer-step counter, the micro-step counter
@@ -63,6 +68,7 @@ from peppa_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads,
                                            sync_batch_norm)
 from peppa_tpu_torch.training.optimization import (BertAdam, make_optimizer,
                                                    trainable_parameters)
+from peppa_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -111,11 +117,12 @@ class TrainState:
         (`broadcast_over_model`)."""
         if self.mesh is None or self.mesh.group is None:
             return
-        all_reduce_grads(list(grads.values()), self.mesh)
-        if self.mesh.model > 1:
-            split = param_shardings(self.model, self.mesh)
-            broadcast_over_model([g for n, g in grads.items()
-                                  if split[n] is None], self.mesh)
+        with span("train.all_reduce"):
+            all_reduce_grads(list(grads.values()), self.mesh)
+            if self.mesh.model > 1:
+                split = param_shardings(self.model, self.mesh)
+                broadcast_over_model([g for n, g in grads.items()
+                                      if split[n] is None], self.mesh)
 
     def apply_gradients(self) -> None:
         """Take one micro-step with the gradients in the parameters'
@@ -124,25 +131,28 @@ class TrainState:
         if k == 1:
             self._all_reduce({n: p.grad for n, p in self.params.items()
                               if p.grad is not None})
-            self.optimizer.step()
+            with span("train.optimizer"):
+                self.optimizer.step()
         else:
             n = self.step % k
-            for name, p in self.params.items():
-                g = (p.grad.float() if p.grad is not None
-                     else torch.zeros_like(p, dtype=torch.float32))
-                acc = self.acc_grads.get(name)
-                if acc is None:
-                    acc = self.acc_grads[name] = torch.zeros_like(g)
-                acc.add_((g - acc) / (n + 1))
+            with span("train.accumulate"):
+                for name, p in self.params.items():
+                    g = (p.grad.float() if p.grad is not None
+                         else torch.zeros_like(p, dtype=torch.float32))
+                    acc = self.acc_grads.get(name)
+                    if acc is None:
+                        acc = self.acc_grads[name] = torch.zeros_like(g)
+                    acc.add_((g - acc) / (n + 1))
             if n == k - 1:
                 self._all_reduce({name: self.acc_grads[name]
                                   for name in self.params})
-                for name, p in self.params.items():
-                    p.grad = self.acc_grads[name]
-                self.optimizer.step()
-                for name, p in self.params.items():
-                    p.grad = None
-                    self.acc_grads[name].zero_()
+                with span("train.optimizer"):
+                    for name, p in self.params.items():
+                        p.grad = self.acc_grads[name]
+                    self.optimizer.step()
+                    for name, p in self.params.items():
+                        p.grad = None
+                        self.acc_grads[name].zero_()
         self.step += 1
 
     def _ranks_mid_group(self) -> bool:

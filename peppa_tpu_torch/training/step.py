@@ -14,6 +14,10 @@ loss kernel, as the JAX package runs no Pallas loss there), else the fused
 `TripletBatch`.  On the card the loss is the fused loss kernel (but under
 the global-negative loss) and, where the config routes attention through
 them, the attention forward and backward kernels.
+
+A micro-step is the span `train.step` over `train.forward` (the model
+call), `train.loss`, `train.backward` and the state's phases
+(`training/state.py`; `utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from peppa_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
                                            replicated)
 from peppa_tpu_torch.training.state import TrainState
 from peppa_tpu_torch.utils.device import resolve_device
+from peppa_tpu_torch.utils.profiling import span
 
 
 def _model_on(model, device) -> torch.device:
@@ -80,14 +85,18 @@ def train_step(state: TrainState, batch: ClipBatch, seed: int,
     model = state.model
     dev = _model_on(model, device)
     mesh = state.mesh
-    dropout_gen, layerdrop_gen = step_generators(
-        seed, state.step, mesh.rank if mesh is not None else 0, dev)
-    model.zero_grad(set_to_none=True)
-    out = model(batch.to(dev), train=True, generator=dropout_gen,
-                layerdrop_generator=layerdrop_gen)
-    loss = _loss(out.video, out.audio, model.config, mesh)
-    loss.backward()
-    state.apply_gradients()
+    with span("train.step"):
+        dropout_gen, layerdrop_gen = step_generators(
+            seed, state.step, mesh.rank if mesh is not None else 0, dev)
+        model.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            out = model(batch.to(dev), train=True, generator=dropout_gen,
+                        layerdrop_generator=layerdrop_gen)
+        with span("train.loss"):
+            loss = _loss(out.video, out.audio, model.config, mesh)
+        with span("train.backward"):
+            loss.backward()
+        state.apply_gradients()
     return state, {"train_loss": loss.detach()}
 
 

@@ -15,8 +15,10 @@ stream of its own, from pinned memory:
   a later copy while the consumer's work still reads it;
 - the pinned sources are held until their copy's event has completed.
 
-`Prefetcher.side_stream_copies` counts the batches that took this route.
-To any other device a batch is moved with `ClipBatch.to`.
+The counter `Prefetcher.side_stream_copies` counts the batches that took
+this route (`utils/profiling.py`).  To any other device a batch is moved
+with `ClipBatch.to`.  The consumer's wait for each batch is the span
+`data.wait`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Iterable, Union
 
 import numpy as np
 import torch
+
+from peppa_tpu_torch.utils.profiling import count, span
 
 
 def _pinned(x) -> torch.Tensor:
@@ -44,7 +48,6 @@ class Prefetcher:
     leaves early."""
 
     _END = object()
-    side_stream_copies = 0
 
     def __init__(self, batches: Iterable,
                  device: Union[str, torch.device], depth: int):
@@ -111,7 +114,7 @@ class Prefetcher:
         self._in_flight.append((event, src))
         while self._in_flight and self._in_flight[0][0].query():
             self._in_flight.popleft()
-        Prefetcher.side_stream_copies += 1
+        count("Prefetcher.side_stream_copies")
         return batch
 
     def _put_final(self, item) -> None:
@@ -122,13 +125,18 @@ class Prefetcher:
             except queue.Full:
                 continue
 
+    def _next(self):
+        """The next moved batch (for CUDA with its event and sources), or
+        the end, or the worker's failure."""
+        if not self._sync:
+            return self._q.get()
+        b = next(self._it, self._END)
+        return b if b is self._END else self._transfer(b)
+
     def __iter__(self):
-        if self._sync:
-            for b in self._it:
-                yield self._ready(self._transfer(b))
-            return
         while True:
-            item = self._q.get()
+            with span("data.wait"):
+                item = self._next()
             if item is self._END:
                 return
             if isinstance(item, _Failure):

@@ -20,6 +20,7 @@ from peppa_tpu_torch.ops.cuda import loss as loss_module
 from peppa_tpu_torch.ops.cuda.loss import (fused_triplet_loss,
                                            fused_triplet_loss_and_grad_plain,
                                            fused_triplet_loss_plain)
+from peppa_tpu_torch.utils.profiling import counters
 from torch_port_loss_data import mixed_activity
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # backward, as chip_smoke
@@ -48,9 +49,9 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol, t, hd):
                .to(dtype) for _ in range(3))
     lens = torch.tensor([t, max(t // 2, 1), min(3, t), 1], device=cuda)
     for lengths in (None, lens):
-        before = mha_attention.launches
+        before = counters()["mha_attention.launches"]
         got = mha_attention(q, k, v, lengths)
-        assert mha_attention.launches == before + 1
+        assert counters()["mha_attention.launches"] == before + 1
         want = mha_attention_plain(q, k, v, lengths)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
@@ -132,9 +133,9 @@ def test_loss_kernel_matches_plain(cuda, b):
     gen = torch.Generator(device=cuda).manual_seed(0)
     v = torch.randn(b, 512, generator=gen, device=cuda)
     a = torch.randn(b, 512, generator=gen, device=cuda)
-    before = fused_triplet_loss.launches
+    before = counters()["fused_triplet_loss.launches"]
     got = fused_triplet_loss(v, a, 0.2)
-    assert fused_triplet_loss.launches == before + 1
+    assert counters()["fused_triplet_loss.launches"] == before + 1
     want = fused_triplet_loss_plain(v, a, 0.2)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
@@ -169,9 +170,9 @@ def test_attention_bwd_kernel_matches_plain(cuda, dtype, t, hd):
     lens = torch.tensor([t, max(t // 2, 1), min(3, t), 1], device=cuda)
     with_zero = torch.tensor([0, t, 1, max(t - 1, 1)], device=cuda)
     for lengths in (None, lens, with_zero):
-        before = mha_attention_bwd.launches
+        before = counters()["mha_attention_bwd.launches"]
         got = _bwd(q, k, v, do, lengths)
-        assert mha_attention_bwd.launches == before + 1
+        assert counters()["mha_attention_bwd.launches"] == before + 1
         want = mha_attention_bwd_plain(q, k, v, do, lengths)
         for g, w in zip(got, want):
             assert g.dtype == dtype
@@ -261,11 +262,12 @@ def test_attention_autograd_runs_both_kernels(cuda, dtype):
                .to(dtype).requires_grad_() for _ in range(3))
     lens = torch.tensor([99, 40], device=cuda)
     do = torch.randn(2, 99, 12, 64, generator=gen, device=cuda).to(dtype)
-    before = (mha_attention.launches, mha_attention_bwd.launches)
+    before = counters()
     out = mha_attention(q, k, v, lens)
     got = torch.autograd.grad(out, (q, k, v), do)
-    assert (mha_attention.launches, mha_attention_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    after = counters()
+    for name in ("mha_attention.launches", "mha_attention_bwd.launches"):
+        assert after[name] == before[name] + 1
     want = mha_attention_bwd_plain(q.detach(), k.detach(), v.detach(), do,
                                    lens)
     for g, w in zip(got, want):
@@ -273,7 +275,8 @@ def test_attention_autograd_runs_both_kernels(cuda, dtype):
                                    atol=TOL[dtype])
     with torch.inference_mode():  # serving: the forward kernel alone
         mha_attention(q, k, v)
-    assert mha_attention_bwd.launches == before[1] + 1
+    assert counters()["mha_attention_bwd.launches"] \
+        == before["mha_attention_bwd.launches"] + 1
 
 
 @pytest.mark.parametrize("b", [8, 13, 32])
@@ -281,9 +284,9 @@ def test_loss_kernel_gradient_matches_plain(cuda, b):
     gen = torch.Generator(device=cuda).manual_seed(b)
     v = torch.randn(b, 512, generator=gen, device=cuda, requires_grad=True)
     a = torch.randn(b, 512, generator=gen, device=cuda, requires_grad=True)
-    before = fused_triplet_loss.launches
+    before = counters()["fused_triplet_loss.launches"]
     got = torch.autograd.grad(fused_triplet_loss(v, a, 0.2), (v, a))
-    assert fused_triplet_loss.launches == before + 1
+    assert counters()["fused_triplet_loss.launches"] == before + 1
     want = torch.autograd.grad(fused_triplet_loss_plain(v, a, 0.2), (v, a))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
@@ -306,11 +309,11 @@ def test_loss_kernel_with_gradient_matches_plain(cuda, kind, b, d):
     loss and closed form (loss rtol 1e-5, atol 1e-6; gradients rtol 1e-4,
     atol 1e-6); one launch per call up to B = 64."""
     v, a = _loss_inputs(cuda, kind, b, d)
-    before = fused_triplet_loss.launches
+    before = counters()["fused_triplet_loss.launches"]
     loss, d_v, d_a = loss_module._launch(v, a, 0.2, grad=True)
     alone = loss_module._launch(v, a, 0.2, grad=False)[0]
     if b <= 64:
-        assert fused_triplet_loss.launches == before + 2
+        assert counters()["fused_triplet_loss.launches"] == before + 2
     want = fused_triplet_loss_and_grad_plain(v, a, 0.2)
     torch.testing.assert_close(loss, want[0], rtol=1e-5, atol=1e-6)
     assert torch.equal(alone, loss)
@@ -409,14 +412,17 @@ def test_validation_on_the_card_runs_the_kernels_only(cuda, monkeypatch):
     data.setup()
     model = init_model(cfg, seed=0)
     batches = sum(len(list(loader)) for loader in data.val_loaders())
-    mha_attention.launches = fused_triplet_loss.launches = 0
+    before = counters()
     metrics = run_validation(model, data.val_loaders(), n_samples=50)
     assert set(metrics) == {"val_loss", "val_rec_fixed", "valnarr_loss",
                             "valnarr_rec_fixed", "val_triplet",
                             "valnarr_triplet"}
     assert all(math.isfinite(v) for v in metrics.values())
-    assert mha_attention.launches == 2 * batches
-    assert fused_triplet_loss.launches == batches
+    after = counters()
+    assert after["mha_attention.launches"] \
+        - before["mha_attention.launches"] == 2 * batches
+    assert after["fused_triplet_loss.launches"] \
+        - before["fused_triplet_loss.launches"] == batches
 
 
 # --------------------------------------------- the data pipeline on the card
@@ -488,7 +494,7 @@ def test_side_stream_prefetcher_equals_clipbatch_to(cuda, tmp_path):
     assert all(b.video.is_pinned() for b in native)
     for batches in (host, native):
         want = [_checksum(b.to(cuda)) for b in batches]
-        before = Prefetcher.side_stream_copies
+        before = counters()["Prefetcher.side_stream_copies"]
         prefetcher = Prefetcher(iter(batches), cuda, depth=3)
         busy = torch.randn(2048, 2048, device=cuda)
         got = []
@@ -503,7 +509,8 @@ def test_side_stream_prefetcher_equals_clipbatch_to(cuda, tmp_path):
         prefetcher.close()
         got = [g.tolist() for g in got]
         assert got == want
-        assert Prefetcher.side_stream_copies - before == len(batches)
+        assert counters()["Prefetcher.side_stream_copies"] - before \
+            == len(batches)
 
 
 def test_native_path_makes_no_pageable_copy(cuda, tmp_path, monkeypatch):
@@ -548,9 +555,9 @@ def test_attention_kernel_past_the_tpu_bound(cuda, dtype, tol, t):
                .to(dtype) for _ in range(3))
     lens = torch.tensor([t, t // 3], device=cuda)
     for lengths in (None, lens):
-        before = mha_attention.launches
+        before = counters()["mha_attention.launches"]
         got = mha_attention(q, k, v, lengths)
-        assert mha_attention.launches == before + 1
+        assert counters()["mha_attention.launches"] == before + 1
         want = mha_attention_plain(q, k, v, lengths)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
@@ -571,10 +578,11 @@ def test_use_pallas_false_launches_no_attention_kernel(cuda):
                                              {"precision": 32}},
                                 "tpu": {"use_pallas": flag}})
         model = init_model(cfg, seed=0, device=cuda)
-        before = mha_attention.launches
+        before = counters()["mha_attention.launches"]
         with torch.inference_mode():
             out[flag] = model.encode_audio(x.to(cuda))
-        assert mha_attention.launches - before == (2 if flag else 0)
+        assert counters()["mha_attention.launches"] - before \
+            == (2 if flag else 0)
     torch.testing.assert_close(out[False], out[True], rtol=1e-4, atol=1e-4)
 
 
@@ -590,11 +598,11 @@ def test_launch_count_is_exact_under_threads(cuda):
         for _ in range(50):
             mha_attention(q, k, v, lengths)
 
-    before = mha_attention.launches
+    before = counters()["mha_attention.launches"]
     with ThreadPoolExecutor(max_workers=8) as pool:
         list(pool.map(run, range(8)))
     torch.cuda.synchronize()
-    assert mha_attention.launches == before + 400
+    assert counters()["mha_attention.launches"] == before + 400
 
 
 def test_ctc_logits_fn_on_the_card_matches_the_cpu(cuda, tmp_path):
@@ -621,9 +629,10 @@ def test_ctc_logits_fn_on_the_card_matches_the_cpu(cuda, tmp_path):
     out = {}
     for device in ("cuda", "cpu"):
         fn = F.make_ctc_logits_fn(variables=variables, cfg=cfg, device=device)
-        before = mha_attention.launches
+        before = counters()["mha_attention.launches"]
         out[device] = fn(path)
-        out[device + "_launches"] = mha_attention.launches - before
+        out[device + "_launches"] = (counters()["mha_attention.launches"]
+                                     - before)
     assert out["cuda_launches"] == cfg.num_layers
     assert out["cpu_launches"] == 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
@@ -645,9 +654,9 @@ def _f32_inputs(cuda, b, t, hd=64):
 
 def _held(q, k, v, lengths):
     """One launch of the kernel, within 1e-5 of the plain version."""
-    before = mha_attention.launches
+    before = counters()["mha_attention.launches"]
     got = mha_attention(q, k, v, lengths)
-    assert mha_attention.launches == before + 1
+    assert counters()["mha_attention.launches"] == before + 1
     want = mha_attention_plain(q, k, v, lengths)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     return got
@@ -797,9 +806,9 @@ def _bwd_f32_inputs(cuda, b, t, seed, hd=64):
 def _bwd_held(q, k, v, do, lengths):
     """One launch of the float32 backward, within 1e-4 + 1e-4|plain| of
     the plain version; masked keys get exactly zero dK and dV."""
-    before = mha_attention_bwd.launches
+    before = counters()["mha_attention_bwd.launches"]
     got = _bwd(q, k, v, do, lengths)
-    assert mha_attention_bwd.launches == before + 1
+    assert counters()["mha_attention_bwd.launches"] == before + 1
     want = mha_attention_bwd_plain(q, k, v, do, lengths)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
@@ -1022,9 +1031,10 @@ def test_exported_artifact_runs_the_kernel_on_the_card(cuda, monkeypatch,
              for s in (8000, 3000, 16000, 12000, 20000, 500)]
     clips = [rng.integers(0, 256, size=(t, 48, 64, 3), dtype=np.uint8)
              for t in (5, 3, 10, 7)]
-    mha_attention.launches = 0
+    before = counters()["mha_attention.launches"]
     a = enc.embed_audio(waves)
-    assert mha_attention.launches == 2 * 2  # one call per bucket
+    # one call per bucket
+    assert counters()["mha_attention.launches"] - before == 2 * 2
     v = enc.embed_video(clips)
     svc = EncoderService(model, cfg, batch_size=4)
     assert np.array_equal(a, svc.embed_audio(waves))

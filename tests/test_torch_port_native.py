@@ -19,6 +19,7 @@ from peppa_tpu_torch.data.types import Clip
 from peppa_tpu_torch.native import build as native_build
 from peppa_tpu_torch.native.loader import (NativeBatchLoader, NativePack,
                                            bucket_plan)
+from peppa_tpu_torch.utils.profiling import counters
 
 FIELDS = ("video", "audio", "video_duration", "audio_duration",
           "video_frames", "audio_samples")
@@ -167,9 +168,10 @@ def test_native_batch_loader_padding_and_order(tmp_path):
             ([1, 2], (pad_t, 24, 32, 3, pad_s)),
             ([9, 8, 7, 6], (pad_t, 24, 32, 3, pad_s)),
             ([4], (5, 24, 32, 3, 900))]  # cropped to a smaller pad
-    before = NativeBatchLoader.served
+    before = counters()["NativeBatchLoader.served"]
     batches = list(NativeBatchLoader(pack, plan, n_threads=3, depth=2))
-    assert NativeBatchLoader.served - before == len(plan) == len(batches)
+    assert counters()["NativeBatchLoader.served"] - before \
+        == len(plan) == len(batches)
     for (idx_list, (pt, _, _, _, ps)), batch in zip(plan, batches):
         assert batch.video.shape == (len(idx_list), pt, 24, 32, 3)
         assert batch.video.dtype == torch.uint8

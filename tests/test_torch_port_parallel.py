@@ -251,6 +251,17 @@ def test_train_step_at_two_ranks_matches_one_rank(run):
                  "parameters")
 
 
+def test_train_step_spans_on_a_2x1_mesh(run):
+    """Each rank's micro-steps are its phase spans; the optimizer step's
+    gradient all-reduce is `train.all_reduce`, before `train.optimizer`."""
+    for r in run["ranks"]:
+        phases = ["train.forward", "train.loss", "train.backward",
+                  "train.accumulate"]
+        assert r["phases"] == [phases,
+                               phases + ["train.all_reduce",
+                                         "train.optimizer"]]
+
+
 def test_global_negative_loss_flag_selects_the_gathered_route(run):
     """`tpu.global_negative_loss: false` takes `triplet_loss` on the
     gathered rows: the same loss and gradient to rounding."""

@@ -37,8 +37,8 @@ from peppa_tpu_torch.data.synthetic import make_synthetic_episode_tree
 from peppa_tpu_torch.evaluation.triplet import TripletScorer
 from peppa_tpu_torch.models.convert import load_jax_variables
 from peppa_tpu_torch.models.dual_encoder import init_model
-from peppa_tpu_torch.native.loader import NativeBatchLoader
 import peppa_tpu_torch.training.loop as L
+from peppa_tpu_torch.utils.profiling import counters
 from test_torch_port_trainer import (_drop_checkpoints,  # noqa: F401
                                      _init_once, _two_threads,
                                      assert_same_state, losses, rows)
@@ -114,12 +114,12 @@ def test_train_batches_equal_jax(trees, int16):
     ref.setup()
     assert port.train.cache_dir.endswith(
         os.path.basename(ref.train.cache_dir))
-    served = NativeBatchLoader.served
+    served = counters()["NativeBatchLoader.served"]
     for epoch in (0, 1):
         got = _same_batches(port.train_batches(epoch),
                             ref.train_batches(epoch))
         assert all(isinstance(b.video, torch.Tensor) for b in got)
-    n = NativeBatchLoader.served - served
+    n = counters()["NativeBatchLoader.served"] - served
     assert n == 2 * len(got) and n > 0
     pack = "items_i16.pack" if int16 else "items.pack"
     assert os.path.exists(os.path.join(port.train.cache_dir, pack))
@@ -127,7 +127,7 @@ def test_train_batches_equal_jax(trees, int16):
         cfg.tpu.native_loader = False
         for epoch in (0, 1):
             _same_batches(port.train_batches(epoch), ref.train_batches(epoch))
-        assert NativeBatchLoader.served - served == n
+        assert counters()["NativeBatchLoader.served"] - served == n
 
 
 def test_iterable_train_batches_equal_jax(trees):
@@ -239,9 +239,9 @@ def test_resume_over_pigdata_is_bit_identical(tmp_path):
     then preempted inside the second epoch and resumed: the later losses and
     the final state equal the unbroken run's, tensor for tensor."""
     data_dir = _tree(tmp_path / "data")
-    served = NativeBatchLoader.served
+    served = counters()["NativeBatchLoader.served"]
     straight, s_state = _fit(tmp_path, "straight", data_dir)
-    assert NativeBatchLoader.served - served >= 6
+    assert counters()["NativeBatchLoader.served"] - served >= 6
     want = losses(straight.version_dir)
     partial, _ = _fit(tmp_path, "partial", data_dir,
                       data_cls=PreemptedAtStep5)

@@ -56,6 +56,7 @@ from peppa_tpu_torch.ops import quant
 from peppa_tpu_torch.serving import EncoderService
 from peppa_tpu_torch.training import checkpoint as C
 from peppa_tpu_torch.training.state import TrainState
+from peppa_tpu_torch.utils.profiling import counters
 from test_torch_port_convert import (_drop_large_files,  # noqa: F401
                                      _random, _two_threads)
 
@@ -275,9 +276,9 @@ def test_int8_conv_matches_jax_bit_for_bit(monkeypatch, case, dtype, route):
     x, w = _inputs(x_shape, w_shape, tdt)
     want = _jax_conv(case, dtype)
     _route(monkeypatch, route)
-    before = quant.int8_conv.calls
+    before = counters()["int8_conv.calls"]
     got = quant.int8_conv(x, torch.from_numpy(w), stride, padding, tdt)
-    assert quant.int8_conv.calls == before + 1
+    assert counters()["int8_conv.calls"] == before + 1
     assert got.dtype == tdt and got.shape == want.shape
     assert torch.equal(got.float(), want)
 
@@ -292,9 +293,9 @@ def test_int8_matmul_matches_jax_bit_for_bit(monkeypatch, case, dtype,
     x, w = _inputs(x_shape, (n, x_shape[-1]), tdt, seed=1)
     want = _jax_matmul(case, dtype)
     _route(monkeypatch, route)
-    before = quant.int8_matmul.calls
+    before = counters()["int8_matmul.calls"]
     got = quant.int8_matmul(x, torch.from_numpy(w), tdt)
-    assert quant.int8_matmul.calls == before + 1
+    assert counters()["int8_matmul.calls"] == before + 1
     assert got.dtype == tdt and torch.equal(got.float(), want)
 
 
@@ -439,15 +440,21 @@ def _feed_jax_inputs(monkeypatch, calls):
     return seen
 
 
+def _products() -> int:
+    """int8 products run so far (the counters `chip_smoke.py` reads)."""
+    now = counters()
+    return now["int8_conv.calls"] + now["int8_matmul.calls"]
+
+
 @pytest.mark.parametrize("tower", list(TOWERS))
 def test_int8_products_cover_the_jax_layers(monkeypatch, tower):
     """One eval forward runs as many int8 products as the JAX package's,
     read from the counters that `chip_smoke.py` reads."""
     port = _port_tower(tower, seed=0)
     calls = _jax_run(tower, 0, port)[0]
-    before = quant.int8_conv.calls + quant.int8_matmul.calls
+    before = _products()
     _encode_port(port, tower, seed=0)
-    got = quant.int8_conv.calls + quant.int8_matmul.calls - before
+    got = _products() - before
     assert got == len(calls) == PRODUCTS[tower]
 
 
@@ -479,12 +486,12 @@ def test_training_forward_is_the_float_one():
                                    "audio": {"num_layers": 2,
                                              "dropout": 0.1}}))
     f.load_state_dict(q.state_dict())
-    before = quant.int8_conv.calls + quant.int8_matmul.calls
+    before = _products()
     for tower in ("wav2vec2", "r2plus1d_18"):
         got = _encode_port(q, tower, seed=3, train=True)
         want = _encode_port(f, tower, seed=3, train=True)
         np.testing.assert_array_equal(got, want)
-    assert quant.int8_conv.calls + quant.int8_matmul.calls == before
+    assert _products() == before
     for (name, a), b in zip(q.state_dict().items(),
                             f.state_dict().values()):
         assert torch.equal(a, b), name  # the same running statistics
@@ -514,9 +521,9 @@ def test_from_checkpoint_serves_int8(tmp_path):
                          buckets=(2.3,), batch_size=2)
     video, _, audio = _tower_inputs(4)
     waves = [audio[0][:1840], audio[1][:1500]]
-    before = quant.int8_matmul.calls
+    before = counters()["int8_matmul.calls"]
     got = svc.embed_audio(waves)
-    assert quant.int8_matmul.calls == before + 1 + 6 * 2
+    assert counters()["int8_matmul.calls"] == before + 1 + 6 * 2
     np.testing.assert_array_equal(got, mem.embed_audio(waves))
     np.testing.assert_array_equal(svc.embed_video(list(video)),
                                   mem.embed_video(list(video)))

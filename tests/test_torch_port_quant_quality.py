@@ -37,6 +37,7 @@ from peppa_tpu_torch.ops.metrics import resampled_recall
 from peppa_tpu_torch.quant_quality import quant_quality
 from peppa_tpu_torch.training import checkpoint as C
 from peppa_tpu_torch.training.state import TrainState
+from peppa_tpu_torch.utils.profiling import counters
 from test_torch_port_trainer import _two_threads  # noqa: F401
 
 RAW = {
@@ -118,8 +119,6 @@ def test_float_row_matches_the_jax_validation(gate):
 def test_int8_row_is_the_int8_validation(gate):
     """Two validations over the run's weights, int8 off and then on; the
     rows are theirs, and the int8 model runs int8 products."""
-    from peppa_tpu_torch.ops import quant
-
     weights = gate["model"].state_dict()
     assert [c[0] for c in gate["calls"]] == [False, True]
     for _, state, _ in gate["calls"]:
@@ -130,10 +129,10 @@ def test_int8_row_is_the_int8_validation(gate):
     assert gate["got"]["int8"] != gate["got"]["float"]
     cfg = Config.from_dict(gate["model"].config.to_dict())
     cfg.tpu.quantize_int8 = True
-    before = quant.int8_matmul.calls
+    before = counters()["int8_matmul.calls"]
     with torch.inference_mode():
         PeppaPig(cfg).eval().encode_audio(torch.zeros(1, 1840))
-    assert quant.int8_matmul.calls > before
+    assert counters()["int8_matmul.calls"] > before
 
 
 def test_printed_rows_and_deltas(gate, capsys):

@@ -283,6 +283,7 @@ def job_parallel(inp: dict, mesh) -> dict:
                                                global_moments, replicated,
                                                shard_batch, sync_batch_norm)
     from peppa_tpu_torch.training.step import step_generators
+    from peppa_tpu_torch.utils.profiling import drain, recording
 
     out = {}
     # the loss both ways, with the gradients of this rank's rows
@@ -320,10 +321,17 @@ def job_parallel(inp: dict, mesh) -> dict:
     all_reduce_grads(tensors, mesh, bucket_bytes=256)
     out["all_reduce"] = [t.numpy() for t in tensors]
 
-    # two micro-steps of the tiny configuration (k = 2: one optimizer step)
+    # two micro-steps of the tiny configuration (k = 2: one optimizer step),
+    # with the names of each micro-step's phase spans
     cfg = Config.from_dict(tiny_raw(inp["data_dir"]))
     batches = [shard_batch(ClipBatch(**b), mesh) for b in global_batches()]
-    out.update(tiny_steps(cfg, inp["variables"], batches, mesh))
+    drain()
+    with recording():
+        out.update(tiny_steps(cfg, inp["variables"], batches, mesh))
+    spans = drain()
+    roots = [s for s in spans if s["name"] == "train.step"]
+    out["phases"] = [[s["name"] for s in spans if s["parent"] == r["id"]]
+                     for r in roots]
 
     # micro-step 1 again under `tpu.global_negative_loss: false`
     cfg.tpu.global_negative_loss = False
